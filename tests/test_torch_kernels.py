@@ -1,0 +1,340 @@
+"""The field kernels' own arithmetic against their plain PyTorch twins.
+
+Two halves, neither importing JAX (so that the file also runs on a machine
+with a card and no JAX):
+
+* on the CPU: ``csrc/field_common.cuh``, the per-point math that K1-K3 run
+  on the card (box SDF, encoding, MLP with LayerNorm and GELU, forward
+  tangents, online softmin union, the union's and the instance's reverse
+  sweeps), is compiled for the host with the C++ compiler and driven
+  point by point by a small harness that mirrors the kernels' loops. What
+  this cannot reach (shared-memory staging, the CTA partial sums and
+  their reduction) is covered by the card tests;
+* on the card (marker ``gpu``, skipped without one): the CUDA kernels
+  against the twins, including N=12 (two instance groups of shared
+  memory), an all-invalid frame, and K2's run-to-run repeatability.
+
+Tolerances, with their reasons:
+* host math: u and w 2e-6 absolute (+ 2e-7 relative): the same f32
+  arithmetic in another order; grad_x u and u_dot 2e-5 relative to scale:
+  the tangents go through four LayerNorm Jacobians; pullbacks 1e-4
+  relative to scale (bench.py's err()): sums over all points;
+* card: 2e-4 relative to scale, bench.py's bar for compiled kernels
+  (fast-math intrinsics, fused multiply-adds and another summation order).
+
+Run the card half with ``python -m pytest tests/test_torch_kernels.py -m gpu``.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from vsrd_tpu_torch.rendering import field_kernels as fk
+from vsrd_tpu_torch.rendering import fused_field as tff
+
+torch.set_num_threads(2)
+TAU = 0.5
+SCALE = 100.0
+
+HARNESS = r"""
+#include <vector>
+
+#include "field_common.cuh"
+
+using namespace vsrd;
+
+namespace {
+
+// dW_l[o][i] += hbar[o] a[i] + thbar[o] ta[i]; the bias column takes hbar[o]
+struct HostSink {
+  float* dW;
+  void layer(int l, int in, int out, const float* a, const float* ta, const float* hbar,
+             const float* thbar) {
+    float* W = dW + layer_offset(l);
+    for (int o = 0; o < out; ++o) {
+      for (int i = 0; i < in; ++i) W[o * (in + 1) + i] += hbar[o] * a[i] + thbar[o] * ta[i];
+      W[o * (in + 1) + in] += hbar[o];
+    }
+  }
+};
+
+bool any_valid_of(int n, const float* valid) {
+  bool any = false;
+  for (int i = 0; i < n; ++i) any |= valid[i] > 0.5f;
+  return any;
+}
+
+// world direction v in the frame of an instance with rotation R
+void to_local(const float* v, const float* R, float t[3]) {
+  for (int c = 0; c < 3; ++c) t[c] = v[0] * R[c] + v[1] * R[3 + c] + v[2] * R[6 + c];
+}
+
+// the forward kernels' per-point loop: K = 3 is K1, K = 1 is K3
+template <int K>
+void forward(int P, int N, const float* pos, const float* dirs, const float* loc,
+             const float* rot, const float* half, const float* valid, const float* W,
+             float tau, float scale, float* u, float* w, float* grad) {
+  const bool any_valid = any_valid_of(N, valid);
+  for (int p = 0; p < P; ++p) {
+    OnlineUnion<K> acc;
+    for (int i = 0; i < N; ++i) {
+      if (!instance_active(valid[i], any_valid)) {
+        w[p * N + i] = 0.f;
+        continue;
+      }
+      const float* R = rot + 9 * i;
+      float tl[K][3];
+      if (K == 3) {
+        for (int j = 0; j < K; ++j)
+          for (int c = 0; c < 3; ++c) tl[j][c] = R[j * 3 + c];
+      } else {
+        to_local(dirs + 3 * p, R, tl[0]);
+      }
+      float td[K];
+      const float d = instance_forward<K>(pos + 3 * p, loc + 3 * i, R, half + 3 * i,
+                                          W ? W + i * kWeights : nullptr, 1.f / scale, tl, td);
+      const float l = union_logit(d, valid[i], tau);
+      w[p * N + i] = l;
+      acc.add(l, d, td);
+    }
+    float du[K];
+    u[p] = acc.finish(tau, du);
+    for (int j = 0; j < K; ++j) grad[p * K + j] = du[j];
+    for (int i = 0; i < N; ++i)
+      if (instance_active(valid[i], any_valid)) w[p * N + i] = acc.weight(w[p * N + i]);
+  }
+}
+
+}  // namespace
+
+extern "C" void host_forward(int P, int N, int K, const float* pos, const float* dirs,
+                             const float* loc, const float* rot, const float* half,
+                             const float* valid, const float* W, float tau, float scale,
+                             float* u, float* w, float* grad) {
+  if (K == 3)
+    forward<3>(P, N, pos, dirs, loc, rot, half, valid, W, tau, scale, u, w, grad);
+  else
+    forward<1>(P, N, pos, dirs, loc, rot, half, valid, W, tau, scale, u, w, grad);
+}
+
+// K2's per-point work, summed over points in order: out [N, kParams]
+extern "C" void host_backward(int P, int N, const float* pos, const float* dg, const float* du,
+                              const float* dw, const float* loc, const float* rot,
+                              const float* half, const float* valid, const float* W, float tau,
+                              float scale, float* out) {
+  const bool any_valid = any_valid_of(N, valid);
+  std::vector<unsigned char> active(N);
+  for (int i = 0; i < N; ++i) active[i] = instance_active(valid[i], any_valid);
+  std::vector<float> d(N), td(N);
+  for (int p = 0; p < P; ++p) {
+    const float* x = pos + 3 * p;
+    const float* v = dg + 3 * p;
+    for (int i = 0; i < N; ++i) {
+      if (!active[i]) continue;
+      float tl[1][3], t[1];
+      to_local(v, rot + 9 * i, tl[0]);
+      d[i] = instance_forward<1>(x, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                 W ? W + i * kWeights : nullptr, 1.f / scale, tl, t);
+      td[i] = t[0];
+    }
+    union_backward(N, active.data(), d.data(), td.data(), valid, tau, du[p], dw + p * N, 1);
+    for (int i = 0; i < N; ++i) {
+      if (!active[i]) continue;
+      HostSink sink{out + i * kParams};
+      float geo[kGeo] = {};
+      instance_backward(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                        W ? W + i * kWeights : nullptr, 1.f / scale, d[i], td[i], geo, sink);
+      for (int k = 0; k < kGeo; ++k) out[i * kParams + kWeights + k] += geo[k];
+    }
+  }
+}
+"""
+
+
+def _inputs(n=4, p=96, seed=0, valid=None):
+    rng = np.random.default_rng(seed)
+    if valid is None:
+        valid = (1.0,) * (n - 1) + (0.0,)
+    angles = rng.uniform(-1, 1, n)
+    dirs = rng.normal(size=(p, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    x = dict(
+        pos=rng.normal(size=(p, 3)) * 5,
+        loc=rng.normal(size=(n, 3)) * 3,
+        rot=np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+                      for a in angles]),
+        half=rng.uniform(0.5, 2.0, size=(n, 3)),
+        valid=np.asarray(valid),
+        w=rng.normal(size=(n, fk.NUM_WEIGHTS)) * 0.3,
+        dirs=dirs,
+        du=rng.normal(size=p), dw=rng.normal(size=(p, n)), dg=rng.normal(size=(p, 3)),
+    )
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in x.items()}
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _err(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1.0)
+
+
+def _twin_pullback(x, use_rdf, device="cpu"):
+    """The twin's (u, w, grad_x u) and the pullback of (du, dw, dg) to
+    (loc, rot, half[, weights])."""
+    c = {k: _t(v).to(device) for k, v in x.items()}
+    params = [c[k].clone().requires_grad_() for k in ("loc", "rot", "half", "w")]
+    if not use_rdf:
+        params = params[:3]
+    u, w, g = tff.scene_eval_with_grad(c["pos"], *params[:3], c["valid"],
+                                       params[3] if use_rdf else None,
+                                       torch.tensor(TAU, device=device))
+    loss = (u * c["du"]).sum() + (w * c["dw"]).sum() + (g * c["dg"]).sum()
+    grads = torch.autograd.grad(loss, params)
+    return [t.detach().cpu().numpy() for t in (u, w, g, *grads)]
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    compiler = shutil.which("c++") or shutil.which("g++")
+    if compiler is None:
+        pytest.skip("needs a C++ compiler to build the kernels' math for the host")
+    build = tmp_path_factory.mktemp("host_field")
+    source = build / "host_field.cpp"
+    source.write_text(HARNESS)
+    lib_path = build / "libhost_field.so"
+    subprocess.run([compiler, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{fk.CSRC}",
+                    "-o", str(lib_path), str(source)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.host_forward.argtypes = [i32, i32, i32] + [ptr] * 7 + [f32, f32] + [ptr] * 3
+    lib.host_backward.argtypes = [i32, i32] + [ptr] * 9 + [f32, f32, ptr]
+    return lib
+
+
+def _ptr(a):
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _host_forward(lib, x, use_rdf, k):
+    p, n = x["pos"].shape[0], x["loc"].shape[0]
+    u, w, g = np.zeros(p, np.float32), np.zeros((p, n), np.float32), np.zeros((p, k), np.float32)
+    lib.host_forward(p, n, k, *map(_ptr, (x["pos"], x["dirs"], x["loc"], x["rot"], x["half"],
+                                          x["valid"], x["w"] if use_rdf else None)),
+                     TAU, SCALE, _ptr(u), _ptr(w), _ptr(g))
+    return u, w, g
+
+
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("valid", [(1.0, 1.0, 1.0, 0.0), (0.0, 0.0, 0.0, 0.0)])
+def test_host_forward_math_matches_twin(host_lib, use_rdf, valid):
+    """K1's per-point math (three tangents) and K3's (one, along dirs)."""
+    x = _inputs(valid=valid)
+    u, w, g = _host_forward(host_lib, x, use_rdf, 3)
+    u2, w2, g2 = _twin_pullback(x, use_rdf)[:3]
+    np.testing.assert_allclose(u, u2, atol=2e-6, rtol=2e-7)
+    np.testing.assert_allclose(w, w2, atol=2e-6, rtol=2e-7)
+    assert _err(g, g2) <= 2e-5
+    ud_twin = tff.scene_eval_dir(*(_t(x[k]) for k in ("pos", "dirs", "loc", "rot", "half",
+                                                     "valid")),
+                                 _t(x["w"]) if use_rdf else None, torch.tensor(TAU))
+    u3, w3, ud = _host_forward(host_lib, x, use_rdf, 1)
+    np.testing.assert_allclose(u3, ud_twin[0].numpy(), atol=2e-6, rtol=2e-7)
+    np.testing.assert_allclose(w3, ud_twin[1].numpy(), atol=2e-6, rtol=2e-7)
+    assert _err(ud[:, 0], ud_twin[2].numpy()) <= 2e-5
+
+
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("valid", [(1.0, 1.0, 1.0, 0.0), (0.0, 0.0, 0.0, 0.0)])
+def test_host_backward_math_matches_twin_pullback(host_lib, use_rdf, valid):
+    """K2's per-point reverse sweep: union, MLP (with the LayerNorm's
+    second-order terms) and box, summed over points."""
+    x = _inputs(seed=1, valid=valid)
+    p, n = x["pos"].shape[0], x["loc"].shape[0]
+    out = np.zeros((n, fk.NUM_WEIGHTS + 15), np.float32)
+    host_lib.host_backward(p, n, *map(_ptr, (x["pos"], x["dg"], x["du"], x["dw"], x["loc"],
+                                             x["rot"], x["half"], x["valid"],
+                                             x["w"] if use_rdf else None)),
+                           TAU, SCALE, _ptr(out))
+    geo = out[:, fk.NUM_WEIGHTS:]
+    got = [geo[:, 0:3], geo[:, 3:12].reshape(n, 3, 3), geo[:, 12:15], out[:, :fk.NUM_WEIGHTS]]
+    ref = _twin_pullback(x, use_rdf)[3:]
+    for name, a, b in zip(("dloc", "drot", "dhalf", "dweights"), got, ref):
+        assert _err(a, b) <= 1e-4, name
+
+
+def test_build_dir_takes_the_override_then_the_checkout_then_the_package(
+        monkeypatch, tmp_path):
+    monkeypatch.setenv("VSRD_TORCH_BUILD_DIR", str(tmp_path / "override"))
+    assert fk.build_dir() == tmp_path / "override"
+    monkeypatch.delenv("VSRD_TORCH_BUILD_DIR")
+    assert fk.build_dir() == fk.PACKAGE.parent / "build"      # a source checkout
+    installed = tmp_path / "site-packages" / "vsrd_tpu_torch"
+    monkeypatch.setattr(fk, "PACKAGE", installed)
+    assert fk.build_dir() == installed / "build"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _kernel_pullback(x, use_rdf, device):
+    c = {k: _t(v).to(device) for k, v in x.items()}
+    params = [c[k].clone().requires_grad_() for k in ("loc", "rot", "half", "w")]
+    if not use_rdf:
+        params = params[:3]
+    u, w, g = fk.fused_field_with_grad(c["pos"], *params[:3], c["valid"],
+                                       params[3] if use_rdf else None,
+                                       torch.tensor(TAU, device=device))
+    loss = (u * c["du"]).sum() + (w * c["dw"]).sum() + (g * c["dg"]).sum()
+    grads = torch.autograd.grad(loss, params)
+    return [t.detach().cpu().numpy() for t in (u, w, g, *grads)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("n, valid", [
+    (8, (1.0,) * 6 + (0.0,) * 2),     # the main path's shape
+    (12, (1.0,) * 11 + (0.0,)),       # two groups of staged weights
+    (4, (0.0,) * 4),                  # no valid instance: uniform weights
+])
+def test_kernels_match_twins_on_card(cuda, use_rdf, n, valid):
+    x = _inputs(n=n, p=3000, valid=valid)
+    launches = (fk.field_forward.launches, fk.field_backward.launches,
+                fk.field_dir_forward.launches)
+    got = _kernel_pullback(x, use_rdf, cuda)
+    ref = _twin_pullback(x, use_rdf, cuda)
+    names = ("u", "w", "grad", "dloc", "drot", "dhalf", "dweights")
+    for name, a, b in zip(names, got, ref):
+        assert _err(a, b) <= 2e-4, name
+    c = {k: _t(v).to(cuda) for k, v in x.items()}
+    args = (c["pos"], c["dirs"], c["loc"], c["rot"], c["half"], c["valid"],
+            c["w"] if use_rdf else None, torch.tensor(TAU, device=cuda))
+    for name, a, b in zip(("u", "w", "u_dot"), fk.fused_field_dir_forward(*args),
+                          tff.scene_eval_dir(*args)):
+        assert _err(a.cpu().numpy(), b.cpu().numpy()) <= 2e-4, name
+    assert (fk.field_forward.launches, fk.field_backward.launches,
+            fk.field_dir_forward.launches) == tuple(k + 1 for k in launches)
+
+
+@pytest.mark.gpu
+def test_backward_kernel_is_repeatable_on_card(cuda):
+    """K2 sums its partials in a fixed order with no atomics: two runs on
+    the same inputs agree bit for bit."""
+    x = _inputs(n=8, p=20_000, valid=(1.0,) * 6 + (0.0,) * 2)
+    c = {k: _t(v).to(cuda) for k, v in x.items()}
+    args = (c["pos"], c["loc"], c["rot"], c["half"], c["valid"], c["w"],
+            torch.tensor(TAU, device=cuda), c["du"], c["dw"], c["dg"])
+    first = fk.field_backward(*args)
+    second = fk.field_backward(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

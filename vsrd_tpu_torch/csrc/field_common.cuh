@@ -1,0 +1,513 @@
+// Per-point math of the multi-instance scene field, shared by kernels K1-K3.
+//
+// One instance's signed distance at a point x:
+//
+//   local = R^T (x - loc)                              instance frame
+//   d     = sqrt(|relu(q)|^2 + 1e-6) - relu(-max q),   q = |local| - half
+//   (residual phase) d += sigmoid(MLP(enc) - 1), where enc holds
+//   cos/sin(pi 2^k s_dim), s = (|l0|, l1, l2) / scale, k < 8, in the
+//   reference channel order dim*16 + k*2 + (0 cos | 1 sin), and the MLP is
+//   48 -> 16 -> 16 -> 16 -> 16 -> 1 with LayerNorm + exact GELU before
+//   every layer but the first. Per instance the MLP is the flattened
+//   hypernetwork output: 1617 floats, layer l an [out][in + 1] row-major
+//   block with the bias last.
+//
+// The functions here carry tangents forward (K of them, seeded in the
+// instance frame) and, for the backward kernel, run the reverse sweep of
+// the one-tangent forward. Everything is scalar f32 per thread, and the
+// functions compile for the host too (without nvcc), so that the math is
+// checked against the PyTorch twin on a machine without a GPU
+// (tests/test_torch_kernels.py).
+#pragma once
+
+#include <math.h>
+
+#if defined(__CUDACC__)
+#define VSRD_HD __host__ __device__ __forceinline__
+#else
+#define VSRD_HD inline
+#endif
+
+namespace vsrd {
+
+constexpr int kFreq = 8;          // encoding frequencies
+constexpr int kEnc = 6 * kFreq;   // 48 encoding channels
+constexpr int kHid = 16;          // hidden width
+constexpr int kWeights = 1617;    // flattened MLP weights per instance
+constexpr int kGeo = 15;          // dloc 3 + drot 9 + dhalf 3
+constexpr int kParams = kWeights + kGeo;  // per-instance cotangent row
+constexpr int kGroup = 8;         // instances whose weights share memory
+
+// offset of layer l's [out][in + 1] block in the flattened weights
+VSRD_HD int layer_offset(int l) { return l == 0 ? 0 : kHid * (kEnc + 1) + (l - 1) * kHid * (kHid + 1); }
+
+VSRD_HD float frequency(int k) { return (float)(3.14159265358979323846 * (double)(1 << k)); }
+
+VSRD_HD float signf(float x) { return (float)(x > 0.f) - (float)(x < 0.f); }
+
+VSRD_HD float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+
+// GELU(y) = y Phi(y) and its first two derivatives' factors.
+struct Gelu {
+  float cdf, pdf;
+  VSRD_HD explicit Gelu(float y)
+      : cdf(0.5f * (1.f + erff(y * 0.70710678118654752f))),
+        pdf(expf(-0.5f * y * y) * 0.39894228040143268f) {}
+};
+
+// Box part of one instance: geometry and its tangents.
+template <int K>
+struct BoxEval {
+  float rel[3], l[3], s[3], q[3], r[3];
+  float o, d;
+  int jmax;
+  float gate;
+  float tq[K][3], to[K], td[K];
+
+  // tl[j][c]: d local_c along tangent j
+  VSRD_HD BoxEval(const float x[3], const float* loc, const float* rot,
+                  const float* half, const float tl[K][3]) {
+    for (int k = 0; k < 3; ++k) rel[k] = x[k] - loc[k];
+    for (int c = 0; c < 3; ++c) {
+      l[c] = rel[0] * rot[c] + rel[1] * rot[3 + c] + rel[2] * rot[6 + c];
+      s[c] = signf(l[c]);
+      q[c] = fabsf(l[c]) - half[c];
+      r[c] = fmaxf(q[c], 0.f);
+    }
+    o = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + 1e-6f);
+    // max face with the JAX kernels' tie-break
+    const int j01 = q[0] > q[1] ? 0 : 1;
+    jmax = q[2] > q[j01] ? 2 : j01;
+    gate = q[jmax] < 0.f ? 1.f : 0.f;
+    d = o - fmaxf(-q[jmax], 0.f);
+    for (int j = 0; j < K; ++j) {
+      for (int c = 0; c < 3; ++c) tq[j][c] = s[c] * tl[j][c];
+      to[j] = (r[0] * tq[j][0] + r[1] * tq[j][1] + r[2] * tq[j][2]) / o;
+      td[j] = to[j] + gate * tq[j][jmax];
+    }
+  }
+};
+
+// LayerNorm (no affine) of h with tangents th; y = (h - mean) istd and
+// ty = istd (tc - y P), tc = th - mean(th), P = mean(y tc).
+template <int K>
+VSRD_HD void layer_norm_fwd(const float h[kHid], const float th[K][kHid],
+                            float y[kHid], float tc[K][kHid], float ty[K][kHid],
+                            float& istd) {
+  float mean = 0.f;
+  for (int i = 0; i < kHid; ++i) mean += h[i];
+  mean *= 1.f / kHid;
+  float var = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+    y[i] = h[i] - mean;
+    var += y[i] * y[i];
+  }
+  istd = 1.f / sqrtf(var * (1.f / kHid) + 1e-5f);
+  for (int i = 0; i < kHid; ++i) y[i] *= istd;
+  for (int j = 0; j < K; ++j) {
+    float tmean = 0.f;
+    for (int i = 0; i < kHid; ++i) tmean += th[j][i];
+    tmean *= 1.f / kHid;
+    float p = 0.f;
+    for (int i = 0; i < kHid; ++i) {
+      tc[j][i] = th[j][i] - tmean;
+      p += y[i] * tc[j][i];
+    }
+    p *= 1.f / kHid;
+    for (int i = 0; i < kHid; ++i) ty[j][i] = istd * (tc[j][i] - y[i] * p);
+  }
+}
+
+// Encoding of one (dim, k) pair: value (cos, sin) of phase f*sym.
+VSRD_HD void enc_pair(float sym, int k, float& cs, float& sn) {
+#if defined(__CUDACC__)
+  sincosf(sym * frequency(k), &sn, &cs);
+#else
+  const float ph = sym * frequency(k);
+  cs = cosf(ph);
+  sn = sinf(ph);
+#endif
+}
+
+// One instance's distance d and K directional derivatives td, for the
+// tangent seeds tl (instance frame). W: the instance's 1617 weights, or
+// nullptr for the box-only phase.
+template <int K>
+VSRD_HD float instance_forward(const float x[3], const float* loc, const float* rot,
+                               const float* half, const float* W, float inv_scale,
+                               const float tl[K][3], float td[K]) {
+  BoxEval<K> box(x, loc, rot, half, tl);
+  float d = box.d;
+  for (int j = 0; j < K; ++j) td[j] = box.td[j];
+  if (W == nullptr) return d;
+
+  const float sym[3] = {fabsf(box.l[0]) * inv_scale, box.l[1] * inv_scale, box.l[2] * inv_scale};
+  float tsym[K][3];
+  for (int j = 0; j < K; ++j) {
+    tsym[j][0] = box.s[0] * tl[j][0] * inv_scale;
+    tsym[j][1] = tl[j][1] * inv_scale;
+    tsym[j][2] = tl[j][2] * inv_scale;
+  }
+
+  // layer 0: encoding channels are produced and consumed one pair at a time
+  float h[kHid], th[K][kHid];
+  for (int o = 0; o < kHid; ++o) {
+    h[o] = W[o * (kEnc + 1) + kEnc];
+    for (int j = 0; j < K; ++j) th[j][o] = 0.f;
+  }
+  for (int dim = 0; dim < 3; ++dim) {
+    for (int k = 0; k < kFreq; ++k) {
+      float cs, sn;
+      enc_pair(sym[dim], k, cs, sn);
+      const float f = frequency(k);
+      float txc[K], txs[K];
+      for (int j = 0; j < K; ++j) {
+        const float tf = f * tsym[j][dim];
+        txc[j] = -sn * tf;
+        txs[j] = cs * tf;
+      }
+      const int c = dim * 2 * kFreq + 2 * k;
+      for (int o = 0; o < kHid; ++o) {
+        const float wc = W[o * (kEnc + 1) + c], ws = W[o * (kEnc + 1) + c + 1];
+        h[o] += wc * cs + ws * sn;
+        for (int j = 0; j < K; ++j) th[j][o] += wc * txc[j] + ws * txs[j];
+      }
+    }
+  }
+
+  // layers 1..4: LayerNorm + GELU, then Linear
+  float raw = 0.f, traw[K];
+  for (int l = 1; l <= 4; ++l) {
+    float y[kHid], tc[K][kHid], ty[K][kHid], istd;
+    layer_norm_fwd<K>(h, th, y, tc, ty, istd);
+    float a[kHid], ta[K][kHid];
+    for (int i = 0; i < kHid; ++i) {
+      const Gelu g(y[i]);
+      a[i] = y[i] * g.cdf;
+      const float g1 = g.cdf + y[i] * g.pdf;
+      for (int j = 0; j < K; ++j) ta[j][i] = g1 * ty[j][i];
+    }
+    const float* Wl = W + layer_offset(l);
+    const int out = l < 4 ? kHid : 1;
+    for (int o = 0; o < out; ++o) {
+      float acc = Wl[o * (kHid + 1) + kHid];
+      float tacc[K];
+      for (int j = 0; j < K; ++j) tacc[j] = 0.f;
+      for (int i = 0; i < kHid; ++i) {
+        const float wv = Wl[o * (kHid + 1) + i];
+        acc += wv * a[i];
+        for (int j = 0; j < K; ++j) tacc[j] += wv * ta[j][i];
+      }
+      if (l < 4) {
+        h[o] = acc;
+        for (int j = 0; j < K; ++j) th[j][o] = tacc[j];
+      } else {
+        raw = acc;
+        for (int j = 0; j < K; ++j) traw[j] = tacc[j];
+      }
+    }
+  }
+  const float sig = sigmoidf(raw - 1.f);
+  const float dsig = sig * (1.f - sig);
+  for (int j = 0; j < K; ++j) td[j] += dsig * traw[j];
+  return d + sig;
+}
+
+// Whether instance i takes part in the union: invalid instances have
+// softmin weight exactly 0 under the f32 logit mask (valid - 1) * 1e30,
+// unless no instance is valid, when all logits shift alike and the
+// weights are uniform.
+VSRD_HD bool instance_active(float valid, bool any_valid) { return valid > 0.5f || !any_valid; }
+
+VSRD_HD float union_logit(float d, float valid, float tau) { return -d / tau + (valid - 1.f) * 1e30f; }
+
+// The softmin union of one point, accumulated online over its instances.
+// With e_i = exp(l_i - max),
+//   u = sum e d / Z,  D_j u = G_j + (u G_j - DG_j) / tau,
+//   G_j = sum e td_j / Z, DG_j = sum e d td_j / Z.
+template <int K>
+struct OnlineUnion {
+  float mx, z, sd, sg[K], sdg[K];
+
+  VSRD_HD OnlineUnion() : mx(-INFINITY), z(0.f), sd(0.f) {
+    for (int j = 0; j < K; ++j) sg[j] = sdg[j] = 0.f;
+  }
+
+  VSRD_HD void add(float l, float d, const float td[K]) {
+    if (l > mx) {
+      const float sc = expf(mx - l);
+      z *= sc;
+      sd *= sc;
+      for (int j = 0; j < K; ++j) {
+        sg[j] *= sc;
+        sdg[j] *= sc;
+      }
+      mx = l;
+    }
+    const float e = expf(l - mx);
+    z += e;
+    sd += e * d;
+    for (int j = 0; j < K; ++j) {
+      sg[j] += e * td[j];
+      sdg[j] += e * d * td[j];
+    }
+  }
+
+  // u; du[j] = D_j u
+  VSRD_HD float finish(float tau, float du[K]) const {
+    const float u = sd / z;
+    for (int j = 0; j < K; ++j) {
+      const float gj = sg[j] / z, dgj = sdg[j] / z;
+      du[j] = gj + (u * gj - dgj) / tau;
+    }
+    return u;
+  }
+
+  // the softmin weight of an instance with logit l
+  VSRD_HD float weight(float l) const { return expf(l - mx) / z; }
+};
+
+// Softmin-union cotangents at one point (stage A of the backward).
+// Given each instance's d, its derivative td along the point's direction,
+// and the cotangents du, dw[i] of u and w, and 1 on u_dot = <dg, grad u>,
+// overwrites d[i] with d_bar[i] and td[i] with td_bar[i]. Inactive
+// instances (weight exactly 0) get zero cotangents.
+VSRD_HD void union_backward(int n, const unsigned char* active, float* d, float* td,
+                            const float* valid, float tau, float du, const float* dw,
+                            int stride) {
+  float mx = -INFINITY;
+  for (int i = 0; i < n; ++i)
+    if (active[i]) mx = fmaxf(mx, union_logit(d[i * stride], valid[i], tau));
+  float z = 0.f;
+  for (int i = 0; i < n; ++i)
+    if (active[i]) z += expf(union_logit(d[i * stride], valid[i], tau) - mx);
+  float u = 0.f, m = 0.f;
+  for (int i = 0; i < n; ++i) {
+    if (!active[i]) continue;
+    const float w = expf(union_logit(d[i * stride], valid[i], tau) - mx) / z;
+    u += w * d[i * stride];
+    m += w * td[i * stride];
+  }
+  float sw = 0.f;
+  for (int i = 0; i < n; ++i) {
+    if (!active[i]) continue;
+    const float di = d[i * stride], ti = td[i * stride];
+    const float w = expf(union_logit(di, valid[i], tau) - mx) / z;
+    sw += w * (dw[i] + du * di + ti * (1.f + (u - di) / tau) + m * di / tau);
+  }
+  for (int i = 0; i < n; ++i) {
+    if (!active[i]) {
+      d[i * stride] = 0.f;
+      td[i * stride] = 0.f;
+      continue;
+    }
+    const float di = d[i * stride], ti = td[i * stride];
+    const float w = expf(union_logit(di, valid[i], tau) - mx) / z;
+    const float wtot = dw[i] + du * di + ti * (1.f + (u - di) / tau) + m * di / tau;
+    const float lbar = w * (wtot - sw);
+    d[i * stride] = du * w + w * (m - ti) / tau - lbar / tau;
+    td[i * stride] = w * (1.f + (u - di) / tau);
+  }
+}
+
+// Reverse sweep of the one-tangent forward of one instance along the
+// world direction v, with cotangents dbar (on d) and tdbar (on td).
+// Adds the point's box-parameter cotangents to geo = [dloc 3 | drot 9 |
+// dhalf 3] and hands each MLP layer's per-point factors to the sink:
+// sink.layer(l, in, out, a, ta, hbar, thbar), with
+// dW_l[o][i] = hbar[o] a[i] + thbar[o] ta[i] (a[in] = 1, ta[in] = 0).
+// Every call reaches the sink in the same order (layers 4..0), which the
+// CUDA sink relies on for its block-wide barriers.
+template <class Sink>
+VSRD_HD void instance_backward(const float x[3], const float v[3], const float* loc,
+                               const float* rot, const float* half, const float* W,
+                               float inv_scale, float dbar, float tdbar, float geo[kGeo],
+                               Sink& sink) {
+  float tl[1][3];
+  for (int c = 0; c < 3; ++c) tl[0][c] = v[0] * rot[c] + v[1] * rot[3 + c] + v[2] * rot[6 + c];
+  BoxEval<1> box(x, loc, rot, half, tl);
+  float lbar[3] = {0.f, 0.f, 0.f}, tlbar[3] = {0.f, 0.f, 0.f};
+
+  if (W != nullptr) {
+    const float sym[3] = {fabsf(box.l[0]) * inv_scale, box.l[1] * inv_scale, box.l[2] * inv_scale};
+    const float tsym[3] = {box.s[0] * tl[0][0] * inv_scale, tl[0][1] * inv_scale,
+                           tl[0][2] * inv_scale};
+    // ---- forward, keeping each LayerNorm's y, tc and istd ----
+    float h[kHid], th[1][kHid];
+    for (int o = 0; o < kHid; ++o) {
+      h[o] = W[o * (kEnc + 1) + kEnc];
+      th[0][o] = 0.f;
+    }
+    for (int dim = 0; dim < 3; ++dim) {
+      for (int k = 0; k < kFreq; ++k) {
+        float cs, sn;
+        enc_pair(sym[dim], k, cs, sn);
+        const float tf = frequency(k) * tsym[dim];
+        const int c = dim * 2 * kFreq + 2 * k;
+        for (int o = 0; o < kHid; ++o) {
+          const float wc = W[o * (kEnc + 1) + c], ws = W[o * (kEnc + 1) + c + 1];
+          h[o] += wc * cs + ws * sn;
+          th[0][o] += (ws * cs - wc * sn) * tf;
+        }
+      }
+    }
+    float ys[4][kHid], tcs[4][kHid], istds[4], ps[4];
+    float raw = 0.f, traw = 0.f;
+    for (int l = 1; l <= 4; ++l) {
+      float tc[1][kHid], ty[1][kHid];
+      layer_norm_fwd<1>(h, th, ys[l - 1], tc, ty, istds[l - 1]);
+      float p = 0.f;
+      for (int i = 0; i < kHid; ++i) {
+        tcs[l - 1][i] = tc[0][i];
+        p += ys[l - 1][i] * tc[0][i];
+      }
+      ps[l - 1] = p * (1.f / kHid);
+      float a[kHid], ta[kHid];
+      for (int i = 0; i < kHid; ++i) {
+        const Gelu g(ys[l - 1][i]);
+        a[i] = ys[l - 1][i] * g.cdf;
+        ta[i] = (g.cdf + ys[l - 1][i] * g.pdf) * ty[0][i];
+      }
+      const float* Wl = W + layer_offset(l);
+      const int out = l < 4 ? kHid : 1;
+      for (int o = 0; o < out; ++o) {
+        float acc = Wl[o * (kHid + 1) + kHid], tacc = 0.f;
+        for (int i = 0; i < kHid; ++i) {
+          acc += Wl[o * (kHid + 1) + i] * a[i];
+          tacc += Wl[o * (kHid + 1) + i] * ta[i];
+        }
+        if (l < 4) {
+          h[o] = acc;
+          th[0][o] = tacc;
+        } else {
+          raw = acc;
+          traw = tacc;
+        }
+      }
+    }
+    const float sig = sigmoidf(raw - 1.f);
+    const float dsig = sig * (1.f - sig);
+
+    // ---- reverse ----
+    float hbar[kHid], thbar[kHid];
+    hbar[0] = dbar * dsig + tdbar * traw * dsig * (1.f - 2.f * sig);
+    thbar[0] = tdbar * dsig;
+    int out = 1;
+    for (int l = 4; l >= 1; --l) {
+      const float* y = ys[l - 1];
+      const float* tc = tcs[l - 1];
+      const float istd = istds[l - 1], p = ps[l - 1];
+      float a[kHid], ta[kHid], ty[kHid], g1[kHid], g2[kHid];
+      for (int i = 0; i < kHid; ++i) {
+        const Gelu g(y[i]);
+        ty[i] = istd * (tc[i] - y[i] * p);
+        g1[i] = g.cdf + y[i] * g.pdf;
+        g2[i] = g.pdf * (2.f - y[i] * y[i]);
+        a[i] = y[i] * g.cdf;
+        ta[i] = g1[i] * ty[i];
+      }
+      sink.layer(l, kHid, out, a, ta, hbar, thbar);
+      const float* Wl = W + layer_offset(l);
+      float ybar[kHid], tybar[kHid];
+      for (int i = 0; i < kHid; ++i) {
+        float abar = 0.f, tabar = 0.f;
+        for (int o = 0; o < out; ++o) {
+          abar += Wl[o * (kHid + 1) + i] * hbar[o];
+          tabar += Wl[o * (kHid + 1) + i] * thbar[o];
+        }
+        ybar[i] = abar * g1[i] + tabar * ty[i] * g2[i];
+        tybar[i] = tabar * g1[i];
+      }
+      // LayerNorm pair: the tangent transposes like the primal; the
+      // primal input also picks up the second-order term through istd, y
+      float s_tyb = 0.f, s_ytyb = 0.f, s_yb = 0.f, s_yyb = 0.f, s_tctyb = 0.f;
+      for (int i = 0; i < kHid; ++i) {
+        s_tyb += tybar[i];
+        s_ytyb += y[i] * tybar[i];
+        s_yb += ybar[i];
+        s_yyb += y[i] * ybar[i];
+        s_tctyb += tc[i] * tybar[i];
+      }
+      const float inv_c = 1.f / kHid;
+      float g[kHid], g_mean = 0.f;
+      for (int i = 0; i < kHid; ++i) {
+        g[i] = istd * istd *
+               (-y[i] * (s_tctyb - 3.f * p * s_ytyb) * inv_c - tc[i] * s_ytyb * inv_c -
+                p * tybar[i]);
+        g_mean += g[i];
+      }
+      g_mean *= inv_c;
+      for (int i = 0; i < kHid; ++i) {
+        thbar[i] = istd * (tybar[i] - s_tyb * inv_c - y[i] * s_ytyb * inv_c);
+        hbar[i] = istd * (ybar[i] - s_yb * inv_c - y[i] * s_yyb * inv_c) + g[i] - g_mean;
+      }
+      out = kHid;
+    }
+
+    // layer 0 and the encoding
+    float x0[kEnc], tx0[kEnc];
+    for (int dim = 0; dim < 3; ++dim) {
+      for (int k = 0; k < kFreq; ++k) {
+        float cs, sn;
+        enc_pair(sym[dim], k, cs, sn);
+        const float tf = frequency(k) * tsym[dim];
+        const int c = dim * 2 * kFreq + 2 * k;
+        x0[c] = cs;
+        x0[c + 1] = sn;
+        tx0[c] = -sn * tf;
+        tx0[c + 1] = cs * tf;
+      }
+    }
+    sink.layer(0, kEnc, kHid, x0, tx0, hbar, thbar);
+    float symbar[3] = {0.f, 0.f, 0.f}, tsymbar[3] = {0.f, 0.f, 0.f};
+    for (int dim = 0; dim < 3; ++dim) {
+      for (int k = 0; k < kFreq; ++k) {
+        const int c = dim * 2 * kFreq + 2 * k;
+        float xc = 0.f, xs = 0.f, txc = 0.f, txs = 0.f;
+        for (int o = 0; o < kHid; ++o) {
+          const float wc = W[o * (kEnc + 1) + c], ws = W[o * (kEnc + 1) + c + 1];
+          xc += wc * hbar[o];
+          xs += ws * hbar[o];
+          txc += wc * thbar[o];
+          txs += ws * thbar[o];
+        }
+        const float f = frequency(k), cs = x0[c], sn = x0[c + 1];
+        const float tf = f * tsym[dim];
+        symbar[dim] += f * (cs * xs - sn * xc) - f * tf * (cs * txc + sn * txs);
+        tsymbar[dim] += f * (cs * txs - sn * txc);
+      }
+    }
+    lbar[0] += symbar[0] * box.s[0] * inv_scale;
+    tlbar[0] += tsymbar[0] * box.s[0] * inv_scale;
+    for (int c = 1; c < 3; ++c) {
+      lbar[c] += symbar[c] * inv_scale;
+      tlbar[c] += tsymbar[c] * inv_scale;
+    }
+  }
+
+  // box: d = o - relu(-q_max), td = to + gate tq[jmax]
+  const float obar = dbar - tdbar * box.to[0] / box.o;
+  float qbar[3], tqbar[3];
+  for (int c = 0; c < 3; ++c) {
+    const float rbar = (obar * box.r[c] + tdbar * box.tq[0][c]) / box.o;
+    tqbar[c] = tdbar * box.r[c] / box.o;
+    qbar[c] = box.q[c] > 0.f ? rbar : 0.f;
+  }
+  qbar[box.jmax] += dbar * box.gate;
+  tqbar[box.jmax] += tdbar * box.gate;
+  for (int c = 0; c < 3; ++c) {
+    geo[12 + c] -= qbar[c];
+    lbar[c] += qbar[c] * box.s[c];
+    tlbar[c] += tqbar[c] * box.s[c];
+  }
+  for (int k = 0; k < 3; ++k) {
+    float rl = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      geo[3 + k * 3 + c] += lbar[c] * box.rel[k] + tlbar[c] * v[k];
+      rl += rot[k * 3 + c] * lbar[c];
+    }
+    geo[k] -= rl;
+  }
+}
+
+}  // namespace vsrd

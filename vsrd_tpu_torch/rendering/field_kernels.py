@@ -1,0 +1,304 @@
+"""The scene-field kernels K1-K3: hand-written CUDA for Hopper, their
+wrappers, launch counters and the autograd binding.
+
+Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
+
+* K1 ``field_forward``: u [P], w [P, N] and grad_x u [P, 3] of the union
+  SDF (``csrc/fused_forward.cu``; TPU ``_fwd_kernel``);
+* K2 ``field_backward``: the cotangents of K1's inputs from those of its
+  outputs (``csrc/fused_backward.cu``; TPU ``_bwd_kernel_manual``);
+* K3 ``field_dir_forward``: u, w and the derivative of u along a
+  per-point direction, forward only (``csrc/dir_forward.cu``; TPU
+  ``_dir_fwd_kernel``).
+
+``fused_field_with_grad`` binds K1 to K2 through ``torch.autograd.Function``
+and ``fused_field_dir_forward`` calls K3. On CPU tensors both take the
+plain twins in ``fused_field`` (autograd and ``torch.func.jvp`` of the
+eager field); on CUDA tensors they launch the kernels or raise — there is
+no fallback. Each launcher counts its launches in ``<launcher>.launches``.
+
+The kernels are compiled on first use with ``nvcc`` for ``sm_90a`` from
+``csrc/`` into a plain-C shared library, loaded with ctypes. It goes to
+``$VSRD_TORCH_BUILD_DIR`` when that is set, else to ``build/`` at the
+root of a source checkout, else to ``build/`` inside the installed
+package. The field's widths are fixed by the kernels: 8 encoding
+frequencies and a 48-16-16-16-16-1 MLP (1617 weights per instance).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from . import fused_field
+
+PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE / "csrc"
+NUM_WEIGHTS = 1617
+_GEO = 15
+_PARAMS = NUM_WEIGHTS + _GEO
+
+_library = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    return str(candidate) if candidate.exists() else "nvcc"
+
+
+def build_dir() -> Path:
+    """Where the library is built (see the module docstring)."""
+    if os.environ.get("VSRD_TORCH_BUILD_DIR"):
+        return Path(os.environ["VSRD_TORCH_BUILD_DIR"])
+    if (PACKAGE.parent / "pyproject.toml").exists():
+        return PACKAGE.parent / "build"
+    return PACKAGE / "build"
+
+
+def build_library() -> ctypes.CDLL:
+    """Compile ``csrc/*.cu`` for sm_90a (once per source content) and load
+    the library. Records the build time and ptxas's register and spill
+    report in ``build_info``.
+
+    nvcc writes to a name private to this process, which is then renamed
+    onto the library's name, so a process that builds at the same time
+    never loads a half-written file."""
+    global _library
+    if _library is not None:
+        return _library
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / f"libvsrd_field_{digest.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".ptxas.txt")
+    start = time.perf_counter()
+    if not lib_path.exists():
+        tmp_lib = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        tmp_log = log_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            "-o", str(tmp_lib), *map(str, sources),
+        ]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp_lib.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        tmp_log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp_log, log_path)
+        os.replace(tmp_lib, lib_path)
+    build_info.update(
+        seconds=time.perf_counter() - start,
+        library=str(lib_path),
+        ptxas=log_path.read_text() if log_path.exists() else "",
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.vsrd_fused_forward.argtypes = [i32, i32, i32] + [ptr] * 7 + [f32] + [ptr] * 4
+    lib.vsrd_dir_forward.argtypes = [i32, i32, i32] + [ptr] * 8 + [f32] + [ptr] * 4
+    lib.vsrd_fused_backward.argtypes = (
+        [i32, i32, i32] + [ptr] * 10 + [f32, i32] + [ptr] * 3
+    )
+    lib.vsrd_fused_backward_ctas.argtypes = [i32, i32, i32]
+    for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward,
+               lib.vsrd_fused_backward, lib.vsrd_fused_backward_ctas):
+        fn.restype = i32
+    _library = lib
+    return lib
+
+
+def _check(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} failed with CUDA error {code}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _prepare(positions, locations, rotations, half_dims, valid, weights, temperature,
+             extra=()):
+    """Validate the CUDA launch inputs and return contiguous f32 views."""
+    device = positions.device
+    if device.type != "cuda":
+        raise ValueError(f"the field kernels run on CUDA tensors, not {device}")
+    p = positions.shape[0]
+    n = locations.shape[0]
+    tensors = [positions, *extra, locations, rotations, half_dims, valid]
+    if weights is not None:
+        tensors.append(weights)
+    for t in tensors:
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError("field kernels take float32 tensors on one CUDA device")
+    if positions.shape != (p, 3) or locations.shape != (n, 3) or half_dims.shape != (n, 3):
+        raise ValueError("positions [P, 3], locations and half_dims [N, 3] expected")
+    if rotations.shape != (n, 3, 3) or valid.shape != (n,):
+        raise ValueError("rotations [N, 3, 3] and valid [N] expected")
+    if weights is not None and weights.shape != (n, NUM_WEIGHTS):
+        raise ValueError(f"weights [N, {NUM_WEIGHTS}] expected (48-16-16-16-16-1 MLP)")
+    if p == 0 or n == 0 or n > 64:
+        raise ValueError("the kernels take 1 <= N <= 64 instances and P >= 1 points")
+    tau = torch.as_tensor(temperature, dtype=torch.float32, device=device).reshape(1)
+    contig = [t.detach().contiguous() for t in (
+        positions, *extra, locations, rotations, half_dims, valid)]
+    w = None if weights is None else weights.detach().contiguous()
+    return contig, w, tau
+
+
+def field_forward(positions, locations, rotations, half_dims, valid, weights,
+                  temperature, position_scale: float = 100.0):
+    """Launch K1: ``(u [P], w [P, N], grad_x u [P, 3])``. ``weights``
+    ``[N, 1617]`` or ``None`` (box only); ``valid`` float [N]."""
+    (pos, loc, rot, half, val), w, tau = _prepare(
+        positions, locations, rotations, half_dims, valid, weights, temperature)
+    lib = build_library()
+    p, n = pos.shape[0], loc.shape[0]
+    u = torch.empty(p, device=pos.device)
+    wts = torch.empty(p, n, device=pos.device)
+    grad = torch.empty(p, 3, device=pos.device)
+    _check(lib.vsrd_fused_forward(
+        p, n, int(w is not None), _ptr(pos), _ptr(loc), _ptr(rot), _ptr(half), _ptr(val),
+        _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts), _ptr(grad),
+        _stream()), "K1 fused_forward")
+    field_forward.launches += 1
+    return u, wts, grad
+
+
+field_forward.launches = 0
+
+
+def field_backward(positions, locations, rotations, half_dims, valid, weights,
+                   temperature, du, dw, dg, position_scale: float = 100.0):
+    """Launch K2: the cotangents ``(dloc [N, 3], drot [N, 3, 3], dhalf
+    [N, 3], dweights [N, 1617] or None)`` of K1's inputs from those of its
+    outputs ``du [P]``, ``dw [P, N]``, ``dg [P, 3]``."""
+    (pos, dg_c, du_c, dw_c, loc, rot, half, val), w, tau = _prepare(
+        positions, locations, rotations, half_dims, valid, weights, temperature,
+        extra=(dg, du, dw))
+    lib = build_library()
+    p, n = pos.shape[0], loc.shape[0]
+    if dg_c.shape != (p, 3) or du_c.shape != (p,) or dw_c.shape != (p, n):
+        raise ValueError("cotangents du [P], dw [P, N], dg [P, 3] expected")
+    rdf = int(w is not None)
+    ctas = lib.vsrd_fused_backward_ctas(p, n, rdf)
+    if ctas <= 0:
+        raise RuntimeError(f"K2 fused_backward: occupancy query failed ({-ctas})")
+    partial = torch.zeros(ctas, n, _PARAMS, device=pos.device)
+    out = torch.empty(n, _PARAMS, device=pos.device)
+    _check(lib.vsrd_fused_backward(
+        p, n, rdf, _ptr(pos), _ptr(dg_c), _ptr(du_c), _ptr(dw_c), _ptr(loc), _ptr(rot),
+        _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), ctas,
+        _ptr(partial), _ptr(out), _stream()), "K2 fused_backward")
+    field_backward.launches += 1
+    dweights = out[:, :NUM_WEIGHTS] if rdf else None
+    geo = out[:, NUM_WEIGHTS:]
+    return geo[:, 0:3], geo[:, 3:12].reshape(n, 3, 3), geo[:, 12:15], dweights
+
+
+field_backward.launches = 0
+
+
+def field_dir_forward(positions, directions, locations, rotations, half_dims, valid,
+                      weights, temperature, position_scale: float = 100.0):
+    """Launch K3: ``(u [P], w [P, N], <dir, grad_x u> [P])``."""
+    (pos, dirs, loc, rot, half, val), w, tau = _prepare(
+        positions, locations, rotations, half_dims, valid, weights, temperature,
+        extra=(directions,))
+    lib = build_library()
+    p, n = pos.shape[0], loc.shape[0]
+    if dirs.shape != (p, 3):
+        raise ValueError("directions [P, 3] expected")
+    u = torch.empty(p, device=pos.device)
+    wts = torch.empty(p, n, device=pos.device)
+    u_dot = torch.empty(p, device=pos.device)
+    _check(lib.vsrd_dir_forward(
+        p, n, int(w is not None), _ptr(pos), _ptr(dirs), _ptr(loc), _ptr(rot), _ptr(half),
+        _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts),
+        _ptr(u_dot), _stream()), "K3 dir_forward")
+    field_dir_forward.launches += 1
+    return u, wts, u_dot
+
+
+field_dir_forward.launches = 0
+
+
+def reset_launch_counts():
+    for fn in (field_forward, field_backward, field_dir_forward):
+        fn.launches = 0
+
+
+class _FusedFieldWithGrad(torch.autograd.Function):
+    """K1 forward, K2 backward. Positions, validity and the temperature
+    are constants, as in the JAX package's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, positions, locations, rotations, half_dims, valid, weights,
+                temperature, position_scale):
+        u, w, g = field_forward(positions, locations, rotations, half_dims, valid,
+                                weights, temperature, position_scale)
+        ctx.save_for_backward(positions, locations, rotations, half_dims, valid, weights,
+                              torch.as_tensor(temperature, device=positions.device))
+        ctx.position_scale = position_scale
+        return u, w, g
+
+    @staticmethod
+    def backward(ctx, du, dw, dg):
+        positions, locations, rotations, half_dims, valid, weights, temperature = (
+            ctx.saved_tensors)
+        p, n = positions.shape[0], locations.shape[0]
+        zeros = positions.new_zeros
+        du = zeros(p) if du is None else du
+        dw = zeros(p, n) if dw is None else dw
+        dg = zeros(p, 3) if dg is None else dg
+        dloc, drot, dhalf, dweights = field_backward(
+            positions, locations, rotations, half_dims, valid, weights, temperature,
+            du, dw, dg, ctx.position_scale)
+        return None, dloc, drot, dhalf, None, dweights, None, None
+
+
+def fused_field_with_grad(positions, locations, rotations, half_dims, valid, weights,
+                          temperature, position_scale: float = 100.0):
+    """(u [P], w [P, N], grad_x u [P, 3]) of the scene field, differentiable
+    with respect to locations, rotations, half_dims and weights.
+
+    CUDA tensors go through K1 and, for the backward, K2; CPU tensors
+    through the plain twin ``fused_field.scene_eval_with_grad``."""
+    if positions.device.type == "cuda":
+        return _FusedFieldWithGrad.apply(positions, locations, rotations, half_dims,
+                                         valid, weights, temperature, position_scale)
+    if positions.device.type == "cpu":
+        return fused_field.scene_eval_with_grad(positions, locations, rotations, half_dims,
+                                                valid, weights, temperature, position_scale)
+    raise ValueError(f"no field kernel for device {positions.device}")
+
+
+def fused_field_dir_forward(positions, directions, locations, rotations, half_dims, valid,
+                            weights, temperature, position_scale: float = 100.0):
+    """(u [P], w [P, N], <dir, grad_x u> [P]), forward only: K3 on CUDA
+    tensors, the plain twin ``fused_field.scene_eval_dir`` on CPU ones."""
+    if positions.device.type == "cuda":
+        return field_dir_forward(positions, directions, locations, rotations, half_dims,
+                                 valid, weights, temperature, position_scale)
+    if positions.device.type == "cpu":
+        return fused_field.scene_eval_dir(positions, directions, locations, rotations,
+                                          half_dims, valid, weights, temperature,
+                                          position_scale)
+    raise ValueError(f"no field kernel for device {positions.device}")

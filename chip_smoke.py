@@ -10,15 +10,28 @@ Phases (any failure exits non-zero):
 3. kernels: K1/K2 at P=199,000 points and K3 at P=99,000, N=8 instances
    (6 valid), box-only and with the residual field, each against its plain
    PyTorch twin on the same inputs on the card (max error relative to the
-   twin's scale <= 2e-4), with kernel and twin times (median of 20);
-4. slice: ``optimize_frame`` on the 17-view 376x1408 synthetic frame with
-   8 instances, 1000 rays and 100+100 samples for 40 steps (20 box-only
-   warmup + 20 with the residual field); the losses and the 3D IoU must be
-   finite and every kernel's launch count must rise by >= 40; then the
-   median ms/step of each phase.
+   twin's scale <= 2e-4; the twin evaluated in float64, see kernel_phase),
+   with kernel and twin times (median of 20; the twin in float32); then
+   the frame-batched launches K4a/K4c at F=8 frames x P=199,000 and K4b at
+   F=8 x P=99,000, whose frames differ in boxes and validity (frame 1 has
+   no valid instance, the others 6 or 8), each frame against the twin the
+   same way, and a check that K4c keeps frames apart: zero cotangents in
+   one frame give exactly zero there and leave the other frames' results
+   bit for bit as they were;
+4. frames: the 17-view 376x1408 synthetic frames of seeds 0-7 with 8
+   instances, built on host threads;
+5. slice: ``optimize_frame`` on frame 0 with 1000 rays and 100+100 samples
+   for 40 steps (20 box-only warmup + 20 with the residual field); the
+   losses and the 3D IoU must be finite, all 8 instances matched at the
+   metric step, and K1, K2 and K3 launched exactly once per step; then the
+   median ms/step of each phase;
+6. batched slice: ``optimize_frames_batched`` on the 8 frames stacked, the
+   same 40 steps; the same checks in every frame, with K4a, K4c and K4b
+   launched exactly once per step for all 8 frames; then the median
+   ms/step of each phase at F=8 beside F=1, and ms per frame-step.
 
 The second-to-last line is a JSON object with one entry per kernel of the
-main path: its launches in the slice, its largest absolute error against
+two paths: its launches in its path, its largest absolute error against
 the twin and that error relative to the twin's scale (the pullback to the
 field weights sums ~200k points, so its absolute error is large where its
 relative one is not), and its time beside the twin's. The last line is
@@ -29,13 +42,18 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 TOLERANCE = 2e-4          # max |kernel - twin| / max(max|twin|, 1)
 REPEATS = 20
+FRAMES = 8                # the batched path's frames (seeds 0-7)
+BATCH_VALID = (6, 0, 8, 6, 8, 6, 8, 6)   # valid instances per frame, kernel phase
+PALLAS = "vsrd_tpu/rendering/pallas_field.py"
 
 
 def fail(message: str):
@@ -49,6 +67,19 @@ def card_name_and_power() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def synthetic_frames(seeds, device: str, **kwargs):
+    """Full-width synthetic frames (17 views at 376x1408, 8 instances) of
+    ``seeds``, built on host threads: the frame build is numpy, which
+    releases the interpreter lock in its array work."""
+    from vsrd_tpu_torch.pipeline import frame as fm
+
+    kwargs = dict(dict(num_views=17, image_size=(376, 1408), num_instances=8,
+                       max_instances=8), **kwargs)
+    workers = max(1, min(len(seeds), os.cpu_count() or 1))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(lambda s: fm.synthetic_frame(s, device=device, **kwargs), seeds))
 
 
 def err(a, b) -> float:
@@ -90,135 +121,215 @@ def field_inputs(num_points: int, num_instances: int = 8, num_valid: int = 6, se
     half = rng.uniform([0.75, 0.75, 1.5], [1.0, 1.0, 2.5], size=(n, 3))
     valid = (np.arange(n) < num_valid).astype(np.float32)
     weights = rng.normal(size=(n, 1617)) * 0.3
-    ray_dirs = np.repeat(dirs, 1, axis=0)
     cot = dict(
         du=rng.normal(size=num_points), dw=rng.normal(size=(num_points, n)),
         dg=rng.normal(size=(num_points, 3)),
     )
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device="cuda")  # noqa: E731
     return dict(
-        pos=t(pos), dirs=t(ray_dirs), loc=t(loc), rot=t(rot), half=t(half), valid=t(valid),
+        pos=t(pos), dirs=t(dirs), loc=t(loc), rot=t(rot), half=t(half), valid=t(valid),
         weights=t(weights), tau=torch.tensor(0.5, device="cuda"),
         **{k: t(v) for k, v in cot.items()},
     )
 
 
-def kernel_phase(rdf: bool, report: dict, errors: dict):
+def batched_field_inputs(num_points: int, seed: int):
+    """``field_inputs`` of FRAMES frames (their own boxes, weights, points
+    and validity, BATCH_VALID) stacked on a leading frame axis."""
+    import torch
+
+    frames = [field_inputs(num_points, num_valid=c, seed=seed + 100 * f)
+              for f, c in enumerate(BATCH_VALID)]
+    out = {k: torch.stack([x[k] for x in frames]) for k in frames[0] if k != "tau"}
+    out["tau"] = frames[0]["tau"]
+    return out
+
+
+def kernel_phase(rdf: bool, batched: bool, report: dict, errors: dict):
+    """Each kernel of one mode (box-only or residual) against its twin:
+    K1/K2/K3, or with ``batched`` K4a/K4c/K4b at FRAMES frames. The twin
+    runs frame by frame (the batched twin's loop; its autograd graph for
+    all frames at once saves ~53 GB of tensors, counted from their shapes),
+    and every frame is held to the tolerance.
+
+    The twin that decides the error runs in float64 on the same inputs (in
+    float32 for its time). In a frame with no valid instance the union is
+    uniform and its gradient weighs each instance's by (1 + (u - d_i) /
+    tau), up to +-30 at the main path's distances; that turns a float32
+    twin's own rounding (the encoding's phases at 100 m) into 3e-3 of
+    grad_x u, while the kernels stay within 1.3e-4 of float64 (NVIDIA H100
+    80GB HBM3, 700.00 W)."""
     import torch
 
     from vsrd_tpu_torch.rendering import fused_field, field_kernels as fk
 
     mode = "rdf" if rdf else "box"
-    # ---- K1 + K2 at the fine pass's P ----
-    x = field_inputs(199_000)
-    weights = x["weights"] if rdf else None
-    args = (x["pos"], x["loc"], x["rot"], x["half"], x["valid"])
+    names = ("K4a", "K4c", "K4b") if batched else ("K1", "K2", "K3")
+    frames = FRAMES if batched else 1
+    make = ((lambda p, seed: batched_field_inputs(p, seed)) if batched
+            else (lambda p, seed: field_inputs(p, seed=seed)))
 
-    def forward_graph(fn):
+    def frame_of(t, f):
+        return t[f] if batched else t
+
+    def frame_inputs(x, f, dtype):
+        return {k: (v if k == "tau" else frame_of(v, f)).to(dtype) for k, v in x.items()}
+
+    arbiter = torch.float64
+
+    def forward_graph(fn, x):
         params = [x["loc"].clone().requires_grad_(), x["rot"].clone().requires_grad_(),
                   x["half"].clone().requires_grad_()]
         if rdf:
-            params.append(weights.clone().requires_grad_())
+            params.append(x["weights"].clone().requires_grad_())
         u, w, g = fn(x["pos"], *params[:3], x["valid"], params[3] if rdf else None, x["tau"])
         loss = (u * x["du"]).sum() + (w * x["dw"]).sum() + (g * x["dg"]).sum()
         return (u.detach(), w.detach(), g.detach()), loss, params
 
-    (uk, wk, gk), loss_k, params_k = forward_graph(fk.fused_field_with_grad)
+    # ---- K1 + K2 (K4a + K4c) at the fine pass's P ----
+    x = make(199_000, 0)
+    weights = x["weights"] if rdf else None
+    fwd_args = (x["pos"], x["loc"], x["rot"], x["half"], x["valid"], weights, x["tau"])
+    outs_k, loss_k, params_k = forward_graph(fk.fused_field_with_grad, x)
     grads_k = torch.autograd.grad(loss_k, params_k)
-    (ut, wt, gt), loss_t, params_t = forward_graph(fused_field.scene_eval_with_grad)
-    grads_t = torch.autograd.grad(loss_t, params_t, retain_graph=True)
+    del loss_k, params_k
+    fwd_abs, bwd_abs, bwd_plain = 0.0, 0.0, 0.0
+    for f in range(frames):
+        outs_t, loss_t, params_t = forward_graph(fused_field.scene_eval_with_grad,
+                                                 frame_inputs(x, f, arbiter))
+        grads_t = torch.autograd.grad(loss_t, params_t)
+        del loss_t, params_t
+        for name, a, b in zip(("u", "w", "grad"), outs_k, outs_t):
+            key = f"{names[0]}_{mode}_{name}"
+            errors[key] = max(errors.get(key, 0.0), err(frame_of(a, f).to(arbiter), b))
+            fwd_abs = max(fwd_abs, float((frame_of(a, f).to(arbiter) - b).abs().max()))
+        for name, a, b in zip(("dloc", "drot", "dhalf", "dweights"), grads_k, grads_t):
+            key = f"{names[1]}_{mode}_{name}"
+            errors[key] = max(errors.get(key, 0.0), err(frame_of(a, f).to(arbiter), b))
+            bwd_abs = max(bwd_abs, float((frame_of(a, f).to(arbiter) - b).abs().max()))
+        del outs_t, grads_t
+        # the float32 twin's backward for all frames: the sum of each frame's
+        _, loss_t, params_t = forward_graph(fused_field.scene_eval_with_grad,
+                                            frame_inputs(x, f, torch.float32))
+        bwd_plain += median_ms(lambda: torch.autograd.grad(loss_t, params_t, retain_graph=True))
+        del loss_t, params_t
     torch.cuda.synchronize()
-    names = ["dloc", "drot", "dhalf", "dweights"]
-    for name, a, b in [("u", uk, ut), ("w", wk, wt), ("grad", gk, gt)]:
-        errors[f"K1_{mode}_{name}"] = err(a, b)
-    for name, a, b in zip(names, grads_k, grads_t):
-        errors[f"K2_{mode}_{name}"] = err(a, b)
+    twin_fwd = (fused_field.scene_eval_with_grad_batched if batched
+                else fused_field.scene_eval_with_grad)
+    report[f"{names[0]}_{mode}"] = dict(
+        frames=frames, max_abs_err=fwd_abs,
+        max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[0]}_{mode}_")),
+        ms=median_ms(lambda: fk.field_forward(*fwd_args)),
+        plain_ms=median_ms(lambda: torch.no_grad()(twin_fwd)(*fwd_args)))
+    report[f"{names[1]}_{mode}"] = dict(
+        frames=frames, max_abs_err=bwd_abs,
+        max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[1]}_{mode}_")),
+        ms=median_ms(lambda: fk.field_backward(*fwd_args, x["du"], x["dw"], x["dg"])),
+        plain_ms=bwd_plain)
+    if batched and rdf:
+        isolation_check(fk, fwd_args, x)
+    del x, outs_k, grads_k
 
-    fwd_args = (*args, weights, x["tau"])
-    k1_ms = median_ms(lambda: fk.field_forward(*fwd_args))
-    twin_fwd = lambda: fused_field.scene_eval_with_grad(*fwd_args)  # noqa: E731
-    k1_plain = median_ms(lambda: torch.no_grad()(twin_fwd)())
-    k2_ms = median_ms(lambda: fk.field_backward(*fwd_args, x["du"], x["dw"], x["dg"]))
-    k2_plain = median_ms(lambda: torch.autograd.grad(loss_t, params_t, retain_graph=True))
-    report[f"K1_{mode}"] = dict(
-        max_abs_err=max(float((a - b).abs().max()) for a, b in [(uk, ut), (wk, wt), (gk, gt)]),
-        max_rel_err=max(v for k, v in errors.items() if k.startswith(f"K1_{mode}_")),
-        ms=k1_ms, plain_ms=k1_plain)
-    report[f"K2_{mode}"] = dict(
-        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_t)),
-        max_rel_err=max(v for k, v in errors.items() if k.startswith(f"K2_{mode}_")),
-        ms=k2_ms, plain_ms=k2_plain)
-    del x, loss_t, params_t, grads_k, grads_t
-
-    # ---- K3 at the coarse pass's P ----
-    x = field_inputs(99_000, seed=1)
+    # ---- K3 (K4b) at the coarse pass's P ----
+    x = make(99_000, 1)
     weights = x["weights"] if rdf else None
     dir_args = (x["pos"], x["dirs"], x["loc"], x["rot"], x["half"], x["valid"], weights, x["tau"])
-    uk, wk, dk = fk.fused_field_dir_forward(*dir_args)
-    ut, wt, dt = fused_field.scene_eval_dir(*dir_args)
-    torch.cuda.synchronize()
-    for name, a, b in [("u", uk, ut), ("w", wk, wt), ("u_dot", dk, dt)]:
-        errors[f"K3_{mode}_{name}"] = err(a, b)
-    report[f"K3_{mode}"] = dict(
-        max_abs_err=max(float((a - b).abs().max()) for a, b in [(uk, ut), (wk, wt), (dk, dt)]),
-        max_rel_err=max(v for k, v in errors.items() if k.startswith(f"K3_{mode}_")),
+    outs_k = fk.fused_field_dir_forward(*dir_args)
+    dir_abs = 0.0
+    for f in range(frames):
+        outs_t = fused_field.scene_eval_dir(
+            *(frame_of(t, f).to(arbiter) for t in dir_args[:6]),
+            None if weights is None else frame_of(weights, f).to(arbiter), x["tau"].to(arbiter))
+        for name, a, b in zip(("u", "w", "u_dot"), outs_k, outs_t):
+            key = f"{names[2]}_{mode}_{name}"
+            errors[key] = max(errors.get(key, 0.0), err(frame_of(a, f).to(arbiter), b))
+            dir_abs = max(dir_abs, float((frame_of(a, f).to(arbiter) - b).abs().max()))
+    twin_dir = fused_field.scene_eval_dir_batched if batched else fused_field.scene_eval_dir
+    report[f"{names[2]}_{mode}"] = dict(
+        frames=frames, max_abs_err=dir_abs,
+        max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[2]}_{mode}_")),
         ms=median_ms(lambda: fk.field_dir_forward(*dir_args)),
-        plain_ms=median_ms(lambda: fused_field.scene_eval_dir(*dir_args)))
+        plain_ms=median_ms(lambda: twin_dir(*dir_args)))
 
 
-def slice_phase(card: str):
-    import numpy as np
+def isolation_check(fk, fwd_args, x):
+    """K4c: zero cotangents in frame 2 give exactly zero there, and every
+    other frame's cotangents stay bit for bit as they were."""
     import torch
 
-    from vsrd_tpu_torch.pipeline import frame as fm, optimize as opt
+    base = fk.field_backward(*fwd_args, x["du"], x["dw"], x["dg"])
+    zeroed = [x[k].clone() for k in ("du", "dw", "dg")]
+    for t in zeroed:
+        t[2] = 0.0
+    again = fk.field_backward(*fwd_args, *zeroed)
+    keep = [f for f in range(FRAMES) if f != 2]
+    for a, b in zip(again, base):
+        if a[2].any():
+            fail("K4c: a frame with zero cotangents got non-zero parameter cotangents")
+        if not torch.equal(a[keep], b[keep]):
+            fail("K4c: zeroing one frame's cotangents changed another frame's result")
+    print("[kernels] K4c frame isolation: zero cotangents in frame 2 give exactly 0 there; "
+          "the other 7 frames are bit for bit unchanged", flush=True)
+
+
+def run_path(label: str, frame, cfg, batched: bool):
+    """Drive one path (``optimize_frame`` on one frame, or
+    ``optimize_frames_batched`` on stacked frames) for cfg.num_steps steps
+    with the launch counts set to 0 just before; check its scalars and
+    that each field kernel ran exactly once per step."""
+    import numpy as np
+
+    from vsrd_tpu_torch.pipeline import optimize as opt
     from vsrd_tpu_torch.rendering import field_kernels as fk
 
-    start = time.perf_counter()
-    frame = fm.synthetic_frame(0, num_views=17, image_size=(376, 1408), num_instances=8,
-                               max_instances=8, device="cuda")
-    torch.cuda.synchronize()
-    print(f"[slice] synthetic frame 17x376x1408, 8 instances: "
-          f"{time.perf_counter() - start:.1f} s", flush=True)
-    cfg = opt.OptimizationConfig(num_steps=40, warmup_steps=20, num_rays=1000, num_samples=100,
-                                 checkpoint_interval=20, metric_interval=20)
-
+    kernels = (("K4a", "K4c", "K4b") if batched else ("K1", "K2", "K3"))
+    launchers = (fk.field_forward, fk.field_backward, fk.field_dir_forward)
     fk.reset_launch_counts()
     start = time.perf_counter()
-    params, scalars = opt.optimize_frame(frame, 1, cfg)
+    run = opt.optimize_frames_batched if batched else opt.optimize_frame
+    params, scalars = run(frame, 1, cfg)
     elapsed = time.perf_counter() - start
-    launches = {
-        "K1": fk.field_forward.launches,
-        "K2": fk.field_backward.launches,
-        "K3": fk.field_dir_forward.launches,
-    }
-    print(f"[slice] optimize_frame 40 steps: {elapsed:.2f} s; launches {launches}", flush=True)
-    loss = scalars["loss"]
-    print(f"[slice] loss warmup {loss[0]:.4f} -> {loss[19]:.4f}, rdf {loss[20]:.4f} -> "
-          f"{loss[39]:.4f}; eikonal {scalars['eikonal_loss'][39]:.5f}; "
-          f"iou_3d @20 {scalars['iou_3d'][19]:.4f} @40 {scalars['iou_3d'][39]:.4f}", flush=True)
+    counts = {name: (fn.batched_launches if batched else fn.launches - fn.batched_launches)
+              for name, fn in zip(kernels, launchers)}
+    total = {name: fn.launches for name, fn in zip(kernels, launchers)}
+    steps, last, warm = cfg.num_steps, cfg.num_steps - 1, cfg.warmup_steps
+    print(f"[{label}] {steps} steps: {elapsed:.2f} s; launches {counts}", flush=True)
+    loss = np.atleast_2d(scalars["loss"].T)
+    iou = np.atleast_2d(scalars["iou_3d"].T)
+    for f in range(loss.shape[0]):
+        print(f"[{label}] frame {f}: loss warmup {loss[f, 0]:.4f} -> {loss[f, warm - 1]:.4f}, "
+              f"rdf {loss[f, warm]:.4f} -> {loss[f, last]:.4f}; "
+              f"iou_3d @{warm} {iou[f, warm - 1]:.4f} @{steps} {iou[f, last]:.4f}", flush=True)
     for name, values in scalars.items():
         if not np.all(np.isfinite(values)):
-            fail(f"non-finite {name} in the slice: {values}")
-    if scalars["num_matched"][39] < 8:
-        fail(f"metrics matched {scalars['num_matched'][39]} of 8 instances")
-    for name, count in launches.items():
-        if count < 40:
-            fail(f"{name} launched {count} times in 40 steps (expected >= 40)")
+            fail(f"non-finite {name} in the {label}: {values}")
+    for step in range(cfg.metric_interval - 1, steps, cfg.metric_interval):
+        matched = np.atleast_1d(scalars["num_matched"][step])
+        if not np.all(matched == 8):
+            fail(f"{label}: metrics at step {step + 1} matched {matched.tolist()} of 8 instances")
+    for name in kernels:
+        if counts[name] != steps or total[name] != steps:
+            fail(f"{label}: {name} launched {counts[name]} times ({total[name]} in all) in "
+                 f"{steps} steps (expected exactly {steps})")
+    return params, counts
 
-    # per-step times: one step per call, each ending in a host copy
+
+def step_times(frame, params, cfg) -> dict:
+    """Median ms/step of each phase: one step per call, each ending in a
+    host copy, 6 calls per phase, the first dropped."""
+    from vsrd_tpu_torch.pipeline import optimize as opt
+
     optimizer = opt.Adam(cfg)
     state = optimizer.init(params)
-    step_ms = {}
+    result = {}
     for phase, first in (("warmup", 0), ("rdf", cfg.warmup_steps)):
         times = []
         for i in range(6):
             t0 = time.perf_counter()
             opt.optimize_chunk(params, state, frame, 1, first + i, cfg, 1, optimizer)
             times.append((time.perf_counter() - t0) * 1e3)
-        step_ms[phase] = statistics.median(times[1:])
-    print(f"[slice] median ms/step on {card}: warmup {step_ms['warmup']:.2f}, "
-          f"rdf {step_ms['rdf']:.2f}", flush=True)
-    return launches
+        result[phase] = statistics.median(times[1:])
+    return result
 
 
 def main():
@@ -229,10 +340,12 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on a card")
     try:
+        from vsrd_tpu_torch.pipeline import optimize as opt, sharded
         from vsrd_tpu_torch.rendering import field_kernels as fk
     except ImportError as exc:
         fail(f"the port is not importable from here ({exc}); run from the repo root")
 
+    script_start = time.perf_counter()
     card = card_name_and_power()
     print(card, flush=True)
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -247,34 +360,63 @@ def main():
             print(f"[build] {line.strip()}", flush=True)
 
     report, errors = {}, {}
-    for rdf in (False, True):
-        kernel_phase(rdf, report, errors)
+    for batched in (False, True):
+        for rdf in (False, True):
+            kernel_phase(rdf, batched, report, errors)
+            torch.cuda.empty_cache()
     for name, value in sorted(errors.items()):
         print(f"[kernels] {name}: rel err {value:.3e}", flush=True)
     for name, entry in sorted(report.items()):
-        print(f"[kernels] {name}: {entry['ms']:.3f} ms (plain {entry['plain_ms']:.3f} ms) "
-              f"on {card}", flush=True)
+        print(f"[kernels] {name} (F={entry['frames']}): {entry['ms']:.3f} ms "
+              f"(plain {entry['plain_ms']:.3f} ms) on {card}", flush=True)
     bad = {k: v for k, v in errors.items() if not v <= TOLERANCE}
     if bad:
         fail(f"kernels disagree with their twins beyond {TOLERANCE}: {bad}")
+    print(f"[time] through the kernel phase: {time.perf_counter() - script_start:.1f} s",
+          flush=True)
 
-    launches = slice_phase(card)
+    start = time.perf_counter()
+    frames = synthetic_frames(list(range(FRAMES)), "cuda")
+    torch.cuda.synchronize()
+    print(f"[frames] {FRAMES} synthetic frames 17x376x1408, 8 instances: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    cfg = opt.OptimizationConfig(num_steps=40, warmup_steps=20, num_rays=1000, num_samples=100,
+                                 checkpoint_interval=20, metric_interval=20)
+
+    params, launches = run_path("slice", frames[0], cfg, batched=False)
+    single_ms = step_times(frames[0], params, cfg)
+    del params
+    batch = sharded.stack_frames(frames)
+    del frames
+    params, batched_launches = run_path("batched slice", batch, cfg, batched=True)
+    launches.update(batched_launches)
+    batch_ms = step_times(batch, params, cfg)
+    for phase in ("warmup", "rdf"):
+        print(f"[step] {phase}: median ms/step F=1 {single_ms[phase]:.2f}, F={FRAMES} "
+              f"{batch_ms[phase]:.2f} ({batch_ms[phase] / FRAMES:.2f} per frame-step) "
+              f"on {card}", flush=True)
+    del batch, params
 
     sources = {
-        "K1": ("fused_forward.cu", "vsrd_tpu/rendering/pallas_field.py:111"),
-        "K2": ("fused_backward.cu", "vsrd_tpu/rendering/pallas_field.py:214"),
-        "K3": ("dir_forward.cu", "vsrd_tpu/rendering/pallas_field.py:138"),
+        "K1": ("fused_forward.cu", f"{PALLAS}:111"),
+        "K2": ("fused_backward.cu", f"{PALLAS}:214"),
+        "K3": ("dir_forward.cu", f"{PALLAS}:138"),
+        "K4a": ("fused_forward.cu", f"{PALLAS}:408"),
+        "K4c": ("fused_backward.cu", f"{PALLAS}:757"),
+        "K4b": ("dir_forward.cu", f"{PALLAS}:542"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        # the main path runs K1/K2 in both modes and K3 box-only
-        mode = "box" if name == "K3" else "rdf"
+        # the main path runs the fine pass and its backward in both modes
+        # and the coarse pass box-only
+        mode = "box" if name in ("K3", "K4b") else "rdf"
         entry = report[f"{name}_{mode}"]
         kernels.append({
             "name": f"{name} ({mode})",
             "route": "cuda",
             "source": f"vsrd_tpu_torch/csrc/{source}",
             "replaces": replaces,
+            "frames": entry["frames"],
             "launches": launches[name],
             "max_abs_err": entry["max_abs_err"],
             "max_rel_err": entry["max_rel_err"],
@@ -283,6 +425,7 @@ def main():
         })
     if not all(math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
+    print(f"[time] whole run: {time.perf_counter() - script_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,11 @@ with a card and no JAX):
   their reduction) is covered by the card tests;
 * on the card (marker ``gpu``, skipped without one): the CUDA kernels
   against the twins, including N=12 (two instance groups of shared
-  memory), an all-invalid frame, and K2's run-to-run repeatability.
+  memory), an all-invalid frame, and K2's run-to-run repeatability; the
+  frame-batched launches K4a/K4b/K4c on a batch whose frames differ in
+  validity (one with no valid instance), K4c's repeatability and frame
+  isolation, and F=1 through the batched entry points against the
+  single-frame launch.
 
 Tolerances, with their reasons:
 * host math: u and w 2e-6 absolute (+ 2e-7 relative): the same f32
@@ -338,3 +342,101 @@ def test_backward_kernel_is_repeatable_on_card(cuda):
     second = fk.field_backward(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _batched_inputs(valid_counts, n=8, p=3000, seed=0):
+    """Per-frame ``_inputs`` stacked on a leading frame axis; frame f has
+    ``valid_counts[f]`` valid instances."""
+    frames = [_inputs(n=n, p=p, seed=seed + f, valid=(1.0,) * c + (0.0,) * (n - c))
+              for f, c in enumerate(valid_counts)]
+    return {k: np.stack([x[k] for x in frames]) for k in frames[0]}
+
+
+def _batched_pullback(x, use_rdf, device, field):
+    c = {k: _t(v).to(device) for k, v in x.items()}
+    params = [c[k].clone().requires_grad_() for k in ("loc", "rot", "half", "w")]
+    if not use_rdf:
+        params = params[:3]
+    u, w, g = field(c["pos"], *params[:3], c["valid"], params[3] if use_rdf else None,
+                    torch.tensor(TAU, device=device))
+    loss = (u * c["du"]).sum() + (w * c["dw"]).sum() + (g * c["dg"]).sum()
+    grads = torch.autograd.grad(loss, params)
+    return [t.detach().cpu().numpy() for t in (u, w, g, *grads)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+def test_batched_kernels_match_twins_on_card(cuda, use_rdf):
+    """K4a, K4c and K4b on three frames of 6, 0 and 8 valid instances: each
+    frame against the twin, and one launch of each kernel for the batch."""
+    x = _batched_inputs((6, 0, 8))
+    launches = [(fn.launches, fn.batched_launches)
+                for fn in (fk.field_forward, fk.field_backward, fk.field_dir_forward)]
+    got = _batched_pullback(x, use_rdf, cuda, fk.fused_field_with_grad)
+    ref = _batched_pullback(x, use_rdf, cuda, tff.scene_eval_with_grad_batched)
+    names = ("u", "w", "grad", "dloc", "drot", "dhalf", "dweights")
+    for name, a, b in zip(names, got, ref):
+        assert a.shape == b.shape and a.shape[0] == 3, name
+        for f in range(3):
+            assert _err(a[f], b[f]) <= 2e-4, (name, f)
+    np.testing.assert_allclose(got[1][1], 1.0 / 8, rtol=1e-6)   # no valid instance
+    c = {k: _t(v).to(cuda) for k, v in x.items()}
+    args = (c["pos"], c["dirs"], c["loc"], c["rot"], c["half"], c["valid"],
+            c["w"] if use_rdf else None, torch.tensor(TAU, device=cuda))
+    for name, a, b in zip(("u", "w", "u_dot"), fk.fused_field_dir_forward(*args),
+                          tff.scene_eval_dir_batched(*args)):
+        for f in range(3):
+            assert _err(a[f].cpu().numpy(), b[f].cpu().numpy()) <= 2e-4, (name, f)
+    after = [(fn.launches, fn.batched_launches)
+             for fn in (fk.field_forward, fk.field_backward, fk.field_dir_forward)]
+    assert after == [(a + 1, b + 1) for a, b in launches]
+
+
+@pytest.mark.gpu
+def test_batched_backward_is_repeatable_and_keeps_frames_apart_on_card(cuda):
+    """K4c: two runs agree bit for bit; a frame with zero cotangents gets
+    exactly zero; changing one frame's inputs leaves the others' results
+    bit for bit as they were."""
+    x = _batched_inputs((6, 0, 8), p=20_000)
+    c = {k: _t(v).to(cuda) for k, v in x.items()}
+
+    def run(c):
+        return fk.field_backward(c["pos"], c["loc"], c["rot"], c["half"], c["valid"], c["w"],
+                                 torch.tensor(TAU, device=cuda), c["du"], c["dw"], c["dg"])
+
+    first, second = run(c), run(c)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    zeroed = dict(c, du=c["du"].clone(), dw=c["dw"].clone(), dg=c["dg"].clone())
+    for key in ("du", "dw", "dg"):
+        zeroed[key][1] = 0.0
+    for a, b in zip(run(zeroed), first):
+        assert not a[1].any()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    moved = dict(c, pos=c["pos"].clone(), w=c["w"].clone())
+    moved["pos"][2] += 1.0
+    moved["w"][2] *= 0.5
+    for a, b in zip(run(moved), first):
+        assert torch.equal(a[:2], b[:2]) and not torch.equal(a[2], b[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+def test_one_frame_through_the_batched_entry_points_equals_the_single_launch(cuda, use_rdf):
+    """F=1 with a leading frame axis is the single-frame launch: the same
+    grid and the same CTAs, so the same bits."""
+    x = _inputs(n=8, p=5000, valid=(1.0,) * 6 + (0.0,) * 2)
+    single = _kernel_pullback(x, use_rdf, cuda)
+    batched = _batched_pullback({k: v[None] for k, v in x.items()}, use_rdf, cuda,
+                                fk.fused_field_with_grad)
+    for a, b in zip(batched, single):
+        np.testing.assert_array_equal(a[0], b)
+    c = {k: _t(v).to(cuda) for k, v in x.items()}
+    args = [c[k] for k in ("pos", "dirs", "loc", "rot", "half", "valid")]
+    weights = c["w"] if use_rdf else None
+    tau = torch.tensor(TAU, device=cuda)
+    for a, b in zip(fk.field_dir_forward(*[t[None] for t in args],
+                                         None if weights is None else weights[None], tau),
+                    fk.field_dir_forward(*args, weights, tau)):
+        assert torch.equal(a[0], b)
+

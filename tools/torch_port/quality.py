@@ -2,6 +2,7 @@
 time and quality.
 
     python3 tools/torch_port/quality.py                 # on one CUDA card
+    python3 tools/torch_port/quality.py --frames 8      # 8 co-optimized frames
     python3 tools/torch_port/quality.py --device cpu --views 2 --size 32 48 \
         --instances 3 --steps 4 --warmup 2 --rays 16 --samples 6    # rehearsal
 
@@ -15,6 +16,11 @@ The default ``--seed`` is the scene that ``bench.py`` builds from
 ``PRNGKey(0)`` (``jax.random.randint(PRNGKey(0), (), 0, 2**31 - 1)``), so
 the final ``iou_3d`` compares with the JAX package's on the same scene.
 The parameters are initialised from ``--init-seed``.
+
+``--frames F`` co-optimizes F frames with ``optimize_frames_batched``: the
+``--seed`` scene as frame 0 and the scenes of seeds 1..F-1. It reports the
+seconds per frame (the run's time over F) and each frame's final
+``iou_3d``.
 """
 
 from __future__ import annotations
@@ -30,15 +36,14 @@ sys.path.insert(0, _ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from vsrd_tpu_torch.pipeline import frame as fm, optimize as opt  # noqa: E402
+from chip_smoke import card_name_and_power, synthetic_frames  # noqa: E402
+from vsrd_tpu_torch.pipeline import optimize as opt, sharded  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk  # noqa: E402
 
 
 def card_label(device: str) -> str:
     if device != "cuda":
         return "cpu (no device metric)"
-    from chip_smoke import card_name_and_power
-
     return card_name_and_power()
 
 
@@ -55,6 +60,8 @@ def main(argv=None):
     parser.add_argument("--warmup", type=int, default=defaults.warmup_steps)
     parser.add_argument("--rays", type=int, default=defaults.num_rays)
     parser.add_argument("--samples", type=int, default=defaults.num_samples)
+    parser.add_argument("--frames", type=int, default=1,
+                        help="co-optimized frames (1: the single-frame path)")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (use --device cpu for a rehearsal)")
@@ -63,9 +70,11 @@ def main(argv=None):
     print(card, flush=True)
     if args.device == "cuda":
         fk.build_library()
-    frame = fm.synthetic_frame(args.seed, num_views=args.views, image_size=tuple(args.size),
-                               num_instances=args.instances, max_instances=args.instances,
-                               device=args.device)
+    frames = synthetic_frames([args.seed] + list(range(1, args.frames)), args.device,
+                              num_views=args.views, image_size=tuple(args.size),
+                              num_instances=args.instances, max_instances=args.instances)
+    frame = frames[0] if args.frames == 1 else sharded.stack_frames(frames)
+    del frames
     interval = min(500, args.steps)
     cfg = opt.OptimizationConfig(num_steps=args.steps, warmup_steps=args.warmup,
                                  num_rays=args.rays, num_samples=args.samples,
@@ -76,22 +85,31 @@ def main(argv=None):
     if args.device == "cuda":
         torch.cuda.synchronize()
     start = time.perf_counter()
-    _, scalars = opt.optimize_frame(frame, args.init_seed, cfg)
+    if args.frames == 1:
+        _, scalars = opt.optimize_frame(frame, args.init_seed, cfg)
+    else:
+        _, scalars = opt.optimize_frames_batched(frame, args.init_seed, cfg)
+    if args.device == "cuda":
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    iou = scalars["iou_3d"]
     if not all(np.all(np.isfinite(v)) for v in scalars.values()):
         raise SystemExit("non-finite scalars in the run")
-    print(f"[quality] seed {args.seed}, {args.steps} steps ({args.warmup} warmup), "
-          f"{args.views} views {args.size[0]}x{args.size[1]}, {args.instances} instances, "
-          f"{args.rays} rays, {args.samples}+{args.samples} samples: "
-          f"{seconds:.2f} s/frame on {card}", flush=True)
-    print(f"[quality] final iou_3d {iou[-1]:.4f} iou_bev {scalars['iou_bev'][-1]:.4f} "
-          f"loss {scalars['loss'][-1]:.4f}", flush=True)
-    print(f"[quality] iou_3d every {interval} steps: "
-          f"{[round(float(iou[i]), 4) for i in range(interval - 1, args.steps, interval)]}",
+    # [steps] or [steps, F] -> [F, steps]
+    iou, iou_bev, loss = (np.atleast_2d(scalars[k].T) for k in ("iou_3d", "iou_bev", "loss"))
+    print(f"[quality] seed {args.seed}, F={args.frames}, {args.steps} steps ({args.warmup} "
+          f"warmup), {args.views} views {args.size[0]}x{args.size[1]}, {args.instances} "
+          f"instances, {args.rays} rays, {args.samples}+{args.samples} samples: "
+          f"{seconds:.2f} s in all, {seconds / args.frames:.2f} s/frame on {card}", flush=True)
+    for f in range(args.frames):
+        print(f"[quality] frame {f}: final iou_3d {iou[f, -1]:.4f} iou_bev {iou_bev[f, -1]:.4f} "
+              f"loss {loss[f, -1]:.4f}; iou_3d every {interval} steps: "
+              f"{[round(float(iou[f, i]), 4) for i in range(interval - 1, args.steps, interval)]}",
+              flush=True)
+    print(f"[quality] kernel launches K1/K4a {fk.field_forward.launches} "
+          f"K2/K4c {fk.field_backward.launches} K3/K4b {fk.field_dir_forward.launches} "
+          f"(with F > 1 frames: {fk.field_forward.batched_launches}, "
+          f"{fk.field_backward.batched_launches}, {fk.field_dir_forward.batched_launches})",
           flush=True)
-    print(f"[quality] kernel launches K1 {fk.field_forward.launches} "
-          f"K2 {fk.field_backward.launches} K3 {fk.field_dir_forward.launches}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Where a step of the PyTorch port's loop spends its time, per phase.
 
     python3 tools/torch_port/step_profile.py                 # on one CUDA card
+    python3 tools/torch_port/step_profile.py --frames 8      # 8 co-optimized frames
     python3 tools/torch_port/step_profile.py --device cpu    # rehearsal, tiny frame
 
 For the box-only warmup phase (from step 0) and the residual-field phase
@@ -13,6 +14,11 @@ unprofiled step (1 - busy / wall), the kernel launches per step, the
 kernels that take most device time and the host operators that take most
 host time. On the card the scene is the bench scene at full width (17
 views at 376x1408, 8 instances, 1000 rays, 100+100 samples).
+
+``--frames F`` profiles the co-optimized batch instead: the bench scene
+as frame 0 and the scenes of seeds 1..F-1, stacked, with params from
+``init_params_batched``; a step then runs all F frames, and the report
+adds the wall time per frame-step.
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 sys.path.insert(0, _ROOT)
 
 import torch  # noqa: E402
+from chip_smoke import card_name_and_power, synthetic_frames  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from vsrd_tpu_torch.pipeline import frame as fm, optimize as opt  # noqa: E402
+from vsrd_tpu_torch.pipeline import optimize as opt, sharded  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk  # noqa: E402
 
 
@@ -38,28 +45,34 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--wall-steps", type=int, default=20)
     parser.add_argument("--profiled-steps", type=int, default=5)
+    parser.add_argument("--frames", type=int, default=1,
+                        help="co-optimized frames per step (1: the single-frame path)")
     args = parser.parse_args(argv)
     device = args.device
+    seeds = [31327077] + list(range(1, args.frames))
     if device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device (use --device cpu for a rehearsal)")
-        from chip_smoke import card_name_and_power
-
         card = card_name_and_power()
         fk.build_library()
-        frame = fm.synthetic_frame(31327077, num_views=17, image_size=(376, 1408),
-                                   num_instances=8, max_instances=8, device=device)
+        frames = synthetic_frames(seeds, device)
         cfg = opt.OptimizationConfig()
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     else:
         card = "cpu (no device metric)"
-        frame = fm.synthetic_frame(0, num_views=2, image_size=(32, 48), num_instances=3,
-                                   max_instances=3, device=device)
+        frames = synthetic_frames([0] + seeds[1:], device, num_views=2, image_size=(32, 48),
+                                  num_instances=3, max_instances=3)
         cfg = opt.OptimizationConfig(num_steps=40, warmup_steps=10, num_rays=16, num_samples=6)
         activities = [ProfilerActivity.CPU]
     print(card, flush=True)
-    params = opt.tree_map(lambda t: t.to(device), opt.init_params(
-        torch.Generator().manual_seed(1), frame.max_instances, cfg))
+    if args.frames == 1:
+        frame = frames[0]
+        params = opt.tree_map(lambda t: t.to(device), opt.init_params(
+            torch.Generator().manual_seed(1), frame.max_instances, cfg))
+    else:
+        frame = sharded.stack_frames(frames)
+        params = opt.init_params_batched(1, args.frames, frame.max_instances, cfg, device)
+    del frames
     optimizer = opt.Adam(cfg)
     state = optimizer.init(params)
 
@@ -86,8 +99,9 @@ def main(argv=None):
         busy_text = (f"device busy {busy:.2f} ms/step; idle share {1 - busy / wall:.3f}; "
                      f"{launches:.0f} kernel launches/step" if device == "cuda"
                      else "device busy not measured")
-        print(f"[profile] {phase} (steps {first + 3}-{first + 2 + args.wall_steps}): "
-              f"wall {wall:.2f} ms/step unprofiled; {busy_text}; on {card}", flush=True)
+        print(f"[profile] {phase} (steps {first + 3}-{first + 2 + args.wall_steps}), "
+              f"F={args.frames}: wall {wall:.2f} ms/step unprofiled "
+              f"({wall / args.frames:.2f} per frame-step); {busy_text}; on {card}", flush=True)
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    device {e.self_device_time_total / per_step:8.3f} ms/step "
                   f"{e.count / args.profiled_steps:6.0f}x  {e.key[:90]}", flush=True)

@@ -11,7 +11,11 @@ namespace vsrd {
 
 constexpr int kFwdThreads = 128;
 
-// One thread per point. Instances are visited in groups of kGroup whose
+// One thread per point; the grid is (point blocks, frames). Every input
+// and output but the temperature has a leading frame axis (F = 1 for a
+// single frame), and a block first moves its pointers to its frame's
+// slice, so the validity, the staged weights and the outputs it touches
+// are its own frame's. Instances are visited in groups of kGroup whose
 // weights (6.5 KB each) are staged in dynamic shared memory; inactive
 // instances (instance_active) are skipped with weight 0. The union is
 // accumulated online (OnlineUnion), and w is written as the logits first,
@@ -25,6 +29,17 @@ forward_kernel(int P, int N, const float* __restrict__ pos, const float* __restr
                float inv_scale, float* __restrict__ u, float* __restrict__ w,
                float* __restrict__ grad) {
   extern __shared__ float wts[];
+  const size_t f = blockIdx.y;
+  pos += f * P * 3;
+  if constexpr (K == 1) dirs += f * P * 3;
+  loc += f * N * 3;
+  rot += f * N * 9;
+  half += f * N * 3;
+  valid += f * N;
+  if constexpr (RDF) weights += f * N * kWeights;
+  u += f * P;
+  w += f * P * N;
+  grad += f * P * K;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = p < P;
   const int pp = live ? p : P - 1;
@@ -83,17 +98,18 @@ forward_kernel(int P, int N, const float* __restrict__ pos, const float* __restr
   }
 }
 
+// F frames of P points each: one launch, grid (ceil(P / kFwdThreads), F).
 template <int K, bool RDF>
-cudaError_t launch_forward(int P, int N, const float* pos, const float* dirs, const float* loc,
-                           const float* rot, const float* half, const float* valid,
-                           const float* weights, const float* tau, float scale, float* u,
-                           float* w, float* grad, cudaStream_t stream) {
+cudaError_t launch_forward(int F, int P, int N, const float* pos, const float* dirs,
+                           const float* loc, const float* rot, const float* half,
+                           const float* valid, const float* weights, const float* tau,
+                           float scale, float* u, float* w, float* grad, cudaStream_t stream) {
   const size_t smem = RDF ? (size_t)(N < kGroup ? N : kGroup) * kWeights * sizeof(float) : 0;
   cudaError_t err = cudaFuncSetAttribute(forward_kernel<K, RDF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (P + kFwdThreads - 1) / kFwdThreads;
-  forward_kernel<K, RDF><<<blocks, kFwdThreads, smem, stream>>>(
+  const dim3 grid((P + kFwdThreads - 1) / kFwdThreads, F);
+  forward_kernel<K, RDF><<<grid, kFwdThreads, smem, stream>>>(
       P, N, pos, dirs, loc, rot, half, valid, weights, tau, 1.f / scale, u, w, grad);
   return cudaGetLastError();
 }

@@ -1,8 +1,11 @@
-// K2: the backward of K1, from the cotangents (du, dw, dg) of its outputs
-// to the box parameters and the per-instance MLP weights.
+// K2 / K4c: the backward of K1 / K4a, from the cotangents (du, dw, dg) of
+// its outputs to the box parameters and the per-instance MLP weights, for
+// one frame (K2) or F stacked frames in one launch (K4c).
 //
-// Replaces the TPU kernel vsrd_tpu/rendering/pallas_field.py::
-// _bwd_kernel_manual (the custom_vjp rule _fused_bwd_rule), whose body is
+// Replaces the TPU kernels vsrd_tpu/rendering/pallas_field.py::
+// _bwd_kernel_manual as launched by the custom_vjp rule _fused_bwd_rule
+// (K2) and by _fused_bwd_batched (K4c, grid (F, tiles), whose output
+// blocks revisit their frame); the body is
 // fused_field.scene_eval_stacked_dir_bwd_t. Since <dg, grad_x u> is the
 // derivative of u along dg, the kernel recomputes each point's field with
 // ONE tangent along dg and runs the reverse sweep of that computation with
@@ -24,6 +27,12 @@
 //     order;
 //   * reduce_partials_kernel then sums the partial rows over CTAs in CTA
 //     order.
+// With F frames the grid is (CTAs per frame, F): each CTA walks only its
+// frame's points with its frame's boxes and weights into its own partial
+// rows [F, CTAs per frame, N, kParams], and the reduction sums each
+// frame's rows alone, so no frame's points reach another frame's sums.
+// The CTAs that fit on the card are shared out among the frames, which
+// keeps the partial buffer at about its single-frame size.
 // No atomics anywhere, so the result is bit-for-bit repeatable. The
 // reverse sweep keeps 4 x 32 LayerNorm residuals per thread, which spill
 // to local memory; the staging (33 KB) and the instance weights (52 KB
@@ -90,13 +99,23 @@ backward_kernel(int P, int N, const float* __restrict__ pos, const float* __rest
                 float inv_scale, float* __restrict__ partial) {
   extern __shared__ float smem[];
   __shared__ unsigned char active[kMaxInstances];
+  const size_t f = blockIdx.y;
+  pos += f * P * 3;
+  dg += f * P * 3;
+  du += f * P;
+  dw += f * P * N;
+  loc += f * N * 3;
+  rot += f * N * 9;
+  half += f * N * 3;
+  valid += f * N;
+  if constexpr (RDF) weights += f * N * kWeights;
   const int tid = threadIdx.x;
   const int gsz = min(N, kGroup);
   float* wts = smem;                                  // RDF: [gsz][kWeights]
   float* scr_d = wts + (RDF ? gsz * kWeights : 0);    // [N][kChunk]: d, then d_bar
   float* scr_t = scr_d + N * kChunk;                  // [N][kChunk]: td, then td_bar
   float* stage = scr_t + N * kChunk;                  // [kStageRows][kStride]
-  float* my_partial = partial + (size_t)blockIdx.x * N * kParams;
+  float* my_partial = partial + (f * gridDim.x + blockIdx.x) * N * kParams;
   const float tau = *tau_ptr;
 
   bool any_valid = false;
@@ -168,11 +187,15 @@ backward_kernel(int P, int N, const float* __restrict__ pos, const float* __rest
   }
 }
 
-// out[e] = sum over CTAs b, in order, of partial[b][e]
+// out[f][e] = sum over CTAs b, in order, of partial[f][b][e]; grid
+// (ceil(total / 256), F)
 __global__ void reduce_partials_kernel(int num_ctas, int total, const float* __restrict__ partial,
                                        float* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
+  const size_t f = blockIdx.y;
+  partial += f * num_ctas * total;
+  out += f * total;
   float s = 0.f;
   for (int b = 0; b < num_ctas; ++b) s += partial[(size_t)b * total + e];
   out[e] = s;
@@ -196,24 +219,27 @@ cudaError_t prepare_backward(int N, int* blocks_per_sm) {
 
 }  // namespace vsrd
 
-// CTAs the backward launches for P points: as many as fit on the card at
-// once, at most one per 64-point chunk. Returns a negative CUDA error code
+// CTAs the backward launches per frame for F frames of P points: as many
+// as fit on the card at once, shared out among the frames, at least one
+// and at most one per 64-point chunk. Returns a negative CUDA error code
 // on failure.
-extern "C" int vsrd_fused_backward_ctas(int P, int N, int rdf) {
+extern "C" int vsrd_fused_backward_ctas(int F, int P, int N, int rdf) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = rdf ? vsrd::prepare_backward<true>(N, &per_sm) : vsrd::prepare_backward<false>(N, &per_sm);
   if (err != cudaSuccess) return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  if (per_sm < 1 || F < 1) return -(int)cudaErrorInvalidConfiguration;
   const int chunks = (P + vsrd::kChunk - 1) / vsrd::kChunk;
-  return chunks < per_sm * sms ? chunks : per_sm * sms;
+  const int per_frame = per_sm * sms / F > 1 ? per_sm * sms / F : 1;
+  return chunks < per_frame ? chunks : per_frame;
 }
 
-// partial: [num_ctas, N, kParams] zero-initialised scratch; out: [N, kParams]
-// with each row [dW 1617 | dloc 3 | drot 9 | dhalf 3] (dW zero when !rdf).
-extern "C" int vsrd_fused_backward(int P, int N, int rdf, const float* pos, const float* dg,
+// partial: [F, num_ctas, N, kParams] zero-initialised scratch (num_ctas per
+// frame); out: [F, N, kParams] with each row [dW 1617 | dloc 3 | drot 9 |
+// dhalf 3] (dW zero when !rdf).
+extern "C" int vsrd_fused_backward(int F, int P, int N, int rdf, const float* pos, const float* dg,
                                    const float* du, const float* dw, const float* loc,
                                    const float* rot, const float* half, const float* valid,
                                    const float* weights, const float* tau, float scale,
@@ -225,15 +251,17 @@ extern "C" int vsrd_fused_backward(int P, int N, int rdf, const float* pos, cons
                         : vsrd::prepare_backward<false>(N, &per_sm);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = vsrd::backward_smem(N, rdf);
+  const dim3 grid(num_ctas, F);
   if (rdf)
-    vsrd::backward_kernel<true><<<num_ctas, vsrd::kChunk, smem, s>>>(
+    vsrd::backward_kernel<true><<<grid, vsrd::kChunk, smem, s>>>(
         P, N, pos, dg, du, dw, loc, rot, half, valid, weights, tau, 1.f / scale, partial);
   else
-    vsrd::backward_kernel<false><<<num_ctas, vsrd::kChunk, smem, s>>>(
+    vsrd::backward_kernel<false><<<grid, vsrd::kChunk, smem, s>>>(
         P, N, pos, dg, du, dw, loc, rot, half, valid, nullptr, tau, 1.f / scale, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int total = N * vsrd::kParams;
-  vsrd::reduce_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(num_ctas, total, partial, out);
+  const dim3 reduce_grid((total + 255) / 256, F);
+  vsrd::reduce_partials_kernel<<<reduce_grid, 256, 0, s>>>(num_ctas, total, partial, out);
   return (int)cudaGetLastError();
 }

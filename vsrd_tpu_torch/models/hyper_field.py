@@ -67,7 +67,7 @@ def init_hyper_field(
 
 def _weight_norm(v, g):
     norms = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-    return v * (g[:, None] / norms)
+    return v * (g[..., :, None] / norms)
 
 
 def layer_norm(x, scale=None, bias=None, epsilon: float = 1e-5):
@@ -84,14 +84,22 @@ def layer_norm(x, scale=None, bias=None, epsilon: float = 1e-5):
 
 
 def hypernetwork_apply(params, embeddings: torch.Tensor) -> torch.Tensor:
-    """Embeddings ``[..., E]`` -> flattened field weights ``[..., W]``."""
+    """Embeddings ``[..., N, E]`` -> flattened field weights ``[..., N, W]``.
+
+    Stacked parameters (a leading frame axis on every leaf, as
+    ``optimize.init_params_batched`` makes them) take embeddings ``[F, N,
+    E]``: frame f's instances go through frame f's hypernetwork."""
     x = embeddings
     layers = params["layers"]
+
+    def row(t):  # a per-output vector [..., C] -> [..., 1, C], broadcast over N
+        return t[..., None, :]
+
     for layer in layers[:-1]:
         w = _weight_norm(layer["v"], layer["g"])
-        x = torch.matmul(x, w.T) + layer["b"]
-        x = layer_norm(x, layer["ln_scale"], layer["ln_bias"])
+        x = torch.matmul(x, w.transpose(-2, -1)) + row(layer["b"])
+        x = layer_norm(x, row(layer["ln_scale"]), row(layer["ln_bias"]))
         x = F.gelu(x)
     last = layers[-1]
     w = _weight_norm(last["v"], last["g"])
-    return torch.matmul(x, w.T) + last["b"]
+    return torch.matmul(x, w.transpose(-2, -1)) + row(last["b"])

@@ -9,6 +9,10 @@ so that the same integer seed gives a bit-identical frame:
   the top-K candidate pixels of the max-over-instances sampling map and
   their log weights precomputed once per frame;
 * ray directions are derived per step for just the sampled pixels.
+
+A FrameData may also hold F equally shaped frames stacked along a leading
+frame axis (``pipeline.sharded.stack_frames``), as the JAX package's
+co-optimized frame batches do.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ class FrameData:
     """One target frame + aligned source views, padded to static shapes.
 
     V = views (target at ``target_index``), N = max instances,
-    P = V * H * W flattened pixels. All tensors live on one device.
+    P = V * H * W flattened pixels. All tensors live on one device. Stacked
+    frames carry a leading frame axis on every tensor, and their
+    ``target_index`` is an int64 tensor ``[F]``.
     """
 
     soft_masks_flat: torch.Tensor    # [P, N] bf16 — target-aligned soft masks
@@ -40,7 +46,7 @@ class FrameData:
     valid: torch.Tensor              # [N] bool — real target instances
     gt_boxes_3d: torch.Tensor        # [N, 8, 3] target GT (NaN where absent)
     rectification: torch.Tensor      # [3, 3]
-    target_index: int                # position of the target view
+    target_index: int | torch.Tensor  # position of the target view ([F] if stacked)
     image_size: tuple[int, int]      # (H, W)
     gray_images: torch.Tensor | None = None  # [V, H, W], photometric only
 
@@ -53,18 +59,27 @@ class FrameData:
         return self.valid.shape[-1]
 
     @property
+    def num_frames(self) -> int | None:
+        """Leading frame-axis size, or None for a single frame."""
+        return self.valid.shape[0] if self.valid.ndim == 2 else None
+
+    @property
     def device(self) -> torch.device:
         return self.valid.device
 
 
 def ray_directions_at(frame: FrameData, flat_indices: torch.Tensor):
-    """(origin, direction) for flattened pixel indices ``[R]``.
+    """(origin, direction) for flattened pixel indices ``[R]``, or ``[F, R]``
+    into stacked frames (row f indexes frame f).
 
     Index layout is the reference's flatten order (view, y, x).
     """
     height, width = frame.image_size
     pixels_per_view = height * width
     view = flat_indices // pixels_per_view
+    if frame.num_frames is not None:
+        frames = torch.arange(frame.num_frames, device=view.device)[:, None]
+        view = (frames, view)
     rem = flat_indices % pixels_per_view
     dtype = frame.inv_projections.dtype
     py = (rem // width).to(dtype)

@@ -1,6 +1,6 @@
 """Per-frame test-time optimization: the Adam loop that auto-labels a frame.
 
-Counterpart of ``vsrd_tpu/pipeline/optimize.py`` for a single frame. One
+Counterpart of ``vsrd_tpu/pipeline/optimize.py``. One
 step (``train_step``) decodes the boxes, projects them into every view,
 matches them to the target view's ground-truth boxes on the device,
 computes the DIoU and smooth-L1 projection losses, renders Gumbel-top-k
@@ -14,6 +14,15 @@ tensors they run their plain twins. The loop runs in Python with no host
 synchronisation inside a chunk: the step index, the phase and the
 metric cadence are host integers, and the per-step scalars are copied to
 the host once per chunk.
+
+Co-optimized frame batches (``optimize_frames_batched``): a FrameData with
+a leading frame axis (``sharded.stack_frames``) and params and Adam
+moments with the same leading axis run through the same functions. Every
+op takes the frame axis as a batch dimension, so a step makes the
+launches of one frame whatever F is, and the field goes through ONE launch
+of each kernel with a frame grid axis (K4a/K4c/K4b). The per-frame losses
+come back as ``[F]`` and are summed for the gradient; frames share the
+step's random stream and the Adam step count, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -127,6 +136,16 @@ def init_params(generator: torch.Generator, max_instances: int, cfg: Optimizatio
     return {"boxes": boxes, "hyper": hyper}
 
 
+def init_params_batched(seed: int, num_frames: int, max_instances: int,
+                        cfg: OptimizationConfig, device: torch.device | str = "cpu"):
+    """Independent per-frame params stacked along a leading frame axis.
+    Frame f takes the f-th draw of one CPU generator seeded with ``seed``,
+    so frame 0 starts where ``optimize_frame(frame, seed)`` starts."""
+    generator = torch.Generator(device="cpu").manual_seed(seed)
+    per_frame = [init_params(generator, max_instances, cfg) for _ in range(num_frames)]
+    return tree_map(lambda t: t.to(device), tree_stack(per_frame))
+
+
 def tree_leaves(tree, prefix=()):
     """(path, tensor) pairs of a nested dict/list of tensors, in a fixed order."""
     if isinstance(tree, dict):
@@ -145,6 +164,17 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_stack(trees):
+    """Equally structured trees -> one tree of their leaves stacked on a
+    new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_stack(list(items)) for items in zip(*trees))
+    return torch.stack(trees)
 
 
 class Adam:
@@ -203,17 +233,23 @@ class Adam:
 
 
 def _project_boxes_all_views(corners_world, frame: FrameData):
-    """World corners [N, 8, 3] -> camera corners [V, N, 8, 3] and clipped
-    2D boxes [V, N, 2, 2] in every view."""
-    cam = geometry.transform_points(frame.extrinsics[:, None], corners_world[None])
-    boxes_2d = geometry.project_box_3d(cam, frame.intrinsics[:, None])
+    """World corners [(F,) N, 8, 3] -> camera corners [(F,) V, N, 8, 3] and
+    clipped 2D boxes [(F,) V, N, 2, 2] in every view."""
+    cam = geometry.transform_points(frame.extrinsics[..., :, None, :, :],
+                                    corners_world[..., None, :, :, :])
+    boxes_2d = geometry.project_box_3d(cam, frame.intrinsics[..., :, None, :, :])
     return cam, geometry.clip_boxes_to_image(boxes_2d, frame.image_size)
 
 
-def _masked_mean(values, mask, dim=None, epsilon=1e-12):
+def _at_target(x, frame: FrameData):
+    """``x [(F,) V, ...]`` in each frame's target view: ``[(F,) ...]``."""
+    if frame.num_frames is None:
+        return x[frame.target_index]
+    return x[torch.arange(frame.num_frames, device=x.device), frame.target_index]
+
+
+def _masked_mean(values, mask, dim, epsilon=1e-12):
     mask = torch.broadcast_to(mask, values.shape).to(values.dtype)
-    if dim is None:
-        return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=epsilon)
     return torch.sum(values * mask, dim=dim) / torch.clamp(torch.sum(mask, dim=dim), min=epsilon)
 
 
@@ -228,9 +264,13 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
     """One forward pass: projection + silhouette (+ eikonal) losses.
 
     ``use_rdf`` selects the post-warmup phase (residual field + eikonal).
-    ``ray_indices [R]`` overrides the per-step ray draw with flat
+    ``ray_indices [(F,) R]`` overrides the per-step ray draw with flat
     (view, y, x) pixel indices, so that two implementations can render
     identical rays. Returns ``(total, aux)``.
+
+    Stacked frames (a leading frame axis on ``frame`` and ``params``) give
+    a per-frame ``total [F]``: every reduction keeps the frame axis, and
+    each frame's params only reach its own loss.
     """
     if cfg.photometric_weight > 0.0:
         raise NotImplementedError("the photometric branch is not ported")
@@ -238,23 +278,28 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         raise NotImplementedError("per-tile instance-group skipping is not ported")
     n = frame.max_instances
     device = frame.device
+    lead = frame.valid.shape[:-1]      # (F,) for stacked frames, () for one
+
+    def frame_mean(values, mask):
+        """Masked mean over every axis but the leading frame axis."""
+        return _masked_mean(values, mask, dim=tuple(range(len(lead), values.ndim)))
 
     # ---------------- projection + matching ----------------
     decoded = box_parameters.decode_boxes(params["boxes"])
     cam_corners, pd_boxes_2d = _project_boxes_all_views(decoded["boxes_3d"], frame)
-    t = frame.target_index
-    pd_flat = pd_boxes_2d[t].reshape(n, 4)
-    gt_flat = frame.gt_boxes_2d[t].reshape(n, 4)
+    pd_flat = _at_target(pd_boxes_2d, frame).reshape(*lead, n, 4)
+    gt_flat = _at_target(frame.gt_boxes_2d, frame).reshape(*lead, n, 4)
     cost = -iou2d.distance_box_iou(pd_flat, gt_flat)
     row_to_col = matching.masked_linear_sum_assignment(cost.detach(), frame.valid, frame.valid)
 
-    gt_matched = frame.gt_boxes_2d[:, row_to_col]
-    vis_matched = frame.visible[:, row_to_col]
-    pair_mask = vis_matched & frame.valid[None, :]
-    pd_xyxy = pd_boxes_2d.reshape(-1, n, 4)
-    gt_xyxy = gt_matched.reshape(-1, n, 4)
-    iou_loss = _masked_mean(iou2d.distance_box_iou_loss(pd_xyxy, gt_xyxy), pair_mask)
-    l1_loss = _masked_mean(iou2d.smooth_l1(pd_xyxy, gt_xyxy), pair_mask[..., None])
+    gt_matched = torch.take_along_dim(frame.gt_boxes_2d, row_to_col[..., None, :, None, None],
+                                      dim=-3)
+    vis_matched = torch.take_along_dim(frame.visible, row_to_col[..., None, :], dim=-1)
+    pair_mask = vis_matched & frame.valid[..., None, :]
+    pd_xyxy = pd_boxes_2d.reshape(*lead, -1, n, 4)
+    gt_xyxy = gt_matched.reshape(*lead, -1, n, 4)
+    iou_loss = frame_mean(iou2d.distance_box_iou_loss(pd_xyxy, gt_xyxy), pair_mask)
+    l1_loss = frame_mean(iou2d.smooth_l1(pd_xyxy, gt_xyxy), pair_mask[..., None])
 
     # ---------------- annealing (f32, as in the JAX package) ----------------
     progress = torch.tensor(step, dtype=torch.float32, device=device) / cfg.num_steps
@@ -273,10 +318,11 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
     valid_f = frame.valid.to(torch.float32)
     scale = cfg.position_scale
 
+    # positions [(F,) R, S, 3] go to the kernels as [(F,) R * S, 3]
     def field_with_grad(positions):
         shape = positions.shape[:-1]
         u, w, g = field_kernels.fused_field_with_grad(
-            positions.reshape(-1, 3), locations, rotations, half_dims, valid_f,
+            positions.reshape(*lead, -1, 3), locations, rotations, half_dims, valid_f,
             field_weights, temperature, scale)
         return u.reshape(shape), w.reshape(*shape, n), g.reshape(*shape, 3)
 
@@ -287,7 +333,7 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         def field_with_dirgrad_coarse(positions, directions):
             shape = positions.shape[:-1]
             u, w, ud = field_kernels.fused_field_dir_forward(
-                positions.reshape(-1, 3), directions.reshape(-1, 3),
+                positions.reshape(*lead, -1, 3), directions.reshape(*lead, -1, 3),
                 locations, rotations, half_dims, valid_f,
                 None if coarse_weights is None else coarse_weights.detach(),
                 temperature, scale)
@@ -297,9 +343,9 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
     if ray_indices is None:
         cand_idx = sampling.multinomial_logits(
             frame.candidate_weights, cfg.num_rays, generator=generator)
-        ray_idx = frame.candidate_indices[cand_idx]
+        ray_idx = torch.take_along_dim(frame.candidate_indices, cand_idx, dim=-1)
     else:
-        ray_idx = ray_indices
+        ray_idx = ray_indices.long()
     origins, directions = ray_directions_at(frame, ray_idx)
 
     out = renderer.hierarchical_render(
@@ -308,21 +354,22 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         field_with_dirgrad_coarse=field_with_dirgrad_coarse,
         deterministic=cfg.deterministic, generator=generator,
     )
-    rendered = out.features  # [R, N] per-ray instance probabilities
+    rendered = out.features  # [(F,) R, N] per-ray instance probabilities
 
-    targets = frame.soft_masks_flat[ray_idx].to(rendered.dtype)[:, row_to_col]
+    targets = torch.take_along_dim(frame.soft_masks_flat, ray_idx[..., None], dim=-2)
+    targets = torch.take_along_dim(targets.to(rendered.dtype), row_to_col[..., None, :], dim=-1)
     bce = _binary_cross_entropy(rendered, targets)
-    silhouette_loss = _masked_mean(bce, frame.valid[None, :])
+    silhouette_loss = frame_mean(bce, frame.valid[..., None, :])
 
     losses = {
         "iou_projection_loss": iou_loss,
         "l1_projection_loss": l1_loss,
         "silhouette_loss": silhouette_loss,
     }
-    zero = torch.zeros((), device=device)
+    zero = torch.zeros(lead, device=device)
     if use_rdf:
         norms = torch.linalg.vector_norm(out.gradients, dim=-1)
-        losses["eikonal_loss"] = torch.mean(torch.square(norms - 1.0))
+        losses["eikonal_loss"] = torch.mean(torch.square(norms - 1.0), dim=(-2, -1))
     else:
         losses["eikonal_loss"] = zero
     losses["photometric_loss"] = zero
@@ -338,7 +385,7 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         "losses": losses,
         "total": total,
         "row_to_col": row_to_col,
-        "cam_corners_target": cam_corners[t],
+        "cam_corners_target": _at_target(cam_corners, frame),
         "temperature": temperature,
         "sdf_std_deviation": std,
     }
@@ -350,30 +397,32 @@ METRIC_NAMES = ("iou_3d", "iou_bev", "accuracy_3d_25", "accuracy_bev_25",
 
 
 def compute_metrics(frame: FrameData, cam_corners_target, row_to_col):
-    """3D/BEV IoU and accuracies of the matched boxes against the GT."""
-    rect = frame.rectification
-    pd = cam_corners_target @ rect.T                        # [N, 8, 3]
-    gt = frame.gt_boxes_3d[row_to_col] @ rect.T
+    """3D/BEV IoU and accuracies of the matched boxes against the GT, per
+    frame for stacked frames (the box pairs of all frames go through
+    ``box_3d_iou`` as one flat batch)."""
+    rect_t = frame.rectification.transpose(-2, -1)[..., None, :, :]   # [(F,) 1, 3, 3]
+    pd = cam_corners_target @ rect_t                                  # [(F,) N, 8, 3]
+    gt = torch.take_along_dim(frame.gt_boxes_3d, row_to_col[..., None, None], dim=-3) @ rect_t
     rot = geometry.rotation_matrix_x(-math.pi / 2.0).to(pd.device)
     pd = pd @ rot.T
     gt_rotated = gt @ rot.T
 
-    finite = torch.all(torch.isfinite(gt.reshape(gt.shape[0], -1)), dim=-1)
+    finite = torch.all(torch.isfinite(gt.flatten(-2)), dim=-1)
     mask = finite & frame.valid
-    gt_safe = torch.where(mask[:, None, None], gt_rotated, 1.0)
+    gt_safe = torch.where(mask[..., None, None], gt_rotated, 1.0)
 
-    iou_3d, iou_bev = iou3d.box_3d_iou(pd, gt_safe)
-    iou_3d = torch.where(mask, iou_3d, 0.0)
-    iou_bev = torch.where(mask, iou_bev, 0.0)
+    iou_3d, iou_bev = iou3d.box_3d_iou(pd.reshape(-1, 8, 3), gt_safe.reshape(-1, 8, 3))
+    iou_3d = torch.where(mask, iou_3d.reshape(mask.shape), 0.0)
+    iou_bev = torch.where(mask, iou_bev.reshape(mask.shape), 0.0)
     f = lambda x: x.to(torch.float32)  # noqa: E731
     return {
-        "iou_3d": _masked_mean(iou_3d, mask),
-        "iou_bev": _masked_mean(iou_bev, mask),
-        "accuracy_3d_25": _masked_mean(f(iou_3d > 0.25), mask),
-        "accuracy_bev_25": _masked_mean(f(iou_bev > 0.25), mask),
-        "accuracy_3d_50": _masked_mean(f(iou_3d > 0.50), mask),
-        "accuracy_bev_50": _masked_mean(f(iou_bev > 0.50), mask),
-        "num_matched": torch.sum(f(mask)),
+        "iou_3d": _masked_mean(iou_3d, mask, dim=-1),
+        "iou_bev": _masked_mean(iou_bev, mask, dim=-1),
+        "accuracy_3d_25": _masked_mean(f(iou_3d > 0.25), mask, dim=-1),
+        "accuracy_bev_25": _masked_mean(f(iou_bev > 0.25), mask, dim=-1),
+        "accuracy_3d_50": _masked_mean(f(iou_3d > 0.50), mask, dim=-1),
+        "accuracy_bev_50": _masked_mean(f(iou_bev > 0.50), mask, dim=-1),
+        "num_matched": torch.sum(f(mask), dim=-1),
     }
 
 
@@ -382,28 +431,30 @@ def train_step(params, opt_state, frame: FrameData, step: int, cfg: Optimization
                ray_indices: torch.Tensor | None = None):
     """One optimization step with the warmup phase switch; updates
     ``params`` and ``opt_state`` in place and returns the step's scalars
-    as 0-d device tensors."""
+    as device tensors (0-d, or ``[F]`` for stacked frames, whose per-frame
+    losses are summed for the gradient)."""
     use_rdf = step >= cfg.warmup_steps
     leaves = [t for _, t in tree_leaves(params)]
     for leaf in leaves:
         leaf.requires_grad_(True)
     total, aux = compute_loss(params, frame, step, cfg, use_rdf, generator, ray_indices)
-    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = torch.autograd.grad(total.sum(), leaves, allow_unused=True)
     for leaf in leaves:
         leaf.requires_grad_(False)
     optimizer.step(params, grads, opt_state)
 
+    lead = frame.valid.shape[:-1]
     if (step + 1) % cfg.metric_interval == 0:
         metrics = compute_metrics(frame, aux["cam_corners_target"].detach(), aux["row_to_col"])
     else:
-        zero = torch.zeros((), device=frame.device)
+        zero = torch.zeros(lead, device=frame.device)
         metrics = {name: zero for name in METRIC_NAMES}
     return {
         "loss": total.detach(),
         **{k: v.detach() for k, v in aux["losses"].items()},
         **metrics,
-        "temperature": aux["temperature"],
-        "sdf_std_deviation": aux["sdf_std_deviation"],
+        "temperature": aux["temperature"].expand(lead),
+        "sdf_std_deviation": aux["sdf_std_deviation"].expand(lead),
     }
 
 
@@ -416,7 +467,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def optimize_chunk(params, opt_state, frame: FrameData, seed: int, start_step: int,
                    cfg: OptimizationConfig, num_steps: int, optimizer: Adam | None = None):
     """Run ``num_steps`` steps from ``start_step``; returns the per-step
-    scalars stacked and copied to the host once."""
+    scalars stacked (``[steps]``, or ``[steps, F]`` for stacked frames) and
+    copied to the host once."""
     optimizer = optimizer or Adam(cfg)
     scalars = []
     for step in range(start_step, start_step + num_steps):
@@ -456,3 +508,19 @@ def optimize_frame(frame: FrameData, seed: int,
             callback(step, params, chunk, opt_state)
     stacked = {k: np.concatenate([c[k] for c in all_scalars]) for k in all_scalars[0]}
     return params, stacked
+
+
+def optimize_frames_batched(frames: FrameData, seed: int,
+                            cfg: OptimizationConfig = OptimizationConfig(), callback=None):
+    """Co-optimize ``F`` stacked frames (``sharded.stack_frames``) on one
+    device: one step runs every frame, through one launch of each field
+    kernel. The frames are independent (each one's params get only its own
+    loss's gradient), their params come from ``init_params_batched(seed)``
+    and they share the per-step random stream. Returns the stacked final
+    params and the per-step scalars ``[steps, F]``; ``callback`` as in
+    ``optimize_frame``.
+    """
+    params = init_params_batched(seed, frames.num_frames, frames.max_instances, cfg,
+                                 device=frames.device)
+    return optimize_frame(frames, seed, cfg, callback,
+                          init_state=(params, Adam(cfg).init(params), 0))

@@ -1,4 +1,4 @@
-"""The scene-field kernels K1-K3: hand-written CUDA for Hopper, their
+"""The scene-field kernels K1-K4c: hand-written CUDA for Hopper, their
 wrappers, launch counters and the autograd binding.
 
 Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
@@ -11,11 +11,21 @@ Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
   per-point direction, forward only (``csrc/dir_forward.cu``; TPU
   ``_dir_fwd_kernel``).
 
+Each launcher also takes F stacked frames: positions ``[F, P, 3]`` (and
+directions and cotangents with the same leading axis) with ``[F, N, ...]``
+boxes, validity and weights, and one scalar temperature. That is ONE
+launch with a frame grid axis, whatever F is: K4a, K4c and K4b, the
+counterparts of the TPU's ``_fused_forward_batched``,
+``_fused_bwd_batched`` and ``_fused_dir_forward_batched``. Each frame's
+outputs come from its own points and parameters only.
+
 ``fused_field_with_grad`` binds K1 to K2 through ``torch.autograd.Function``
 and ``fused_field_dir_forward`` calls K3. On CPU tensors both take the
 plain twins in ``fused_field`` (autograd and ``torch.func.jvp`` of the
-eager field); on CUDA tensors they launch the kernels or raise — there is
-no fallback. Each launcher counts its launches in ``<launcher>.launches``.
+eager field, looped over frames for a leading frame axis); on CUDA tensors
+they launch the kernels or raise — there is no fallback. Each launcher
+counts its launches in ``<launcher>.launches`` and, of those, the ones
+with more than one frame (K4a/K4c/K4b) in ``<launcher>.batched_launches``.
 
 The kernels are compiled on first use with ``nvcc`` for ``sm_90a`` from
 ``csrc/`` into a plain-C shared library, loaded with ctypes. It goes to
@@ -108,12 +118,10 @@ def build_library() -> ctypes.CDLL:
     )
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vsrd_fused_forward.argtypes = [i32, i32, i32] + [ptr] * 7 + [f32] + [ptr] * 4
-    lib.vsrd_dir_forward.argtypes = [i32, i32, i32] + [ptr] * 8 + [f32] + [ptr] * 4
-    lib.vsrd_fused_backward.argtypes = (
-        [i32, i32, i32] + [ptr] * 10 + [f32, i32] + [ptr] * 3
-    )
-    lib.vsrd_fused_backward_ctas.argtypes = [i32, i32, i32]
+    lib.vsrd_fused_forward.argtypes = [i32] * 4 + [ptr] * 7 + [f32] + [ptr] * 4
+    lib.vsrd_dir_forward.argtypes = [i32] * 4 + [ptr] * 8 + [f32] + [ptr] * 4
+    lib.vsrd_fused_backward.argtypes = [i32] * 4 + [ptr] * 10 + [f32, i32] + [ptr] * 3
+    lib.vsrd_fused_backward_ctas.argtypes = [i32] * 4
     for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward,
                lib.vsrd_fused_backward, lib.vsrd_fused_backward_ctas):
         fn.restype = i32
@@ -136,113 +144,129 @@ def _stream():
 
 def _prepare(positions, locations, rotations, half_dims, valid, weights, temperature,
              extra=()):
-    """Validate the CUDA launch inputs and return contiguous f32 views."""
+    """Validate the CUDA launch inputs. Returns the leading frame shape
+    (``()`` or ``(F,)``), the frame count, contiguous f32 views of
+    ``positions``, ``extra``, locations, rotations, half_dims and valid,
+    the weights' view (or ``None``) and the temperature as a 1-element
+    tensor."""
     device = positions.device
     if device.type != "cuda":
         raise ValueError(f"the field kernels run on CUDA tensors, not {device}")
-    p = positions.shape[0]
-    n = locations.shape[0]
+    if positions.ndim not in (2, 3):
+        raise ValueError("positions [P, 3] or [F, P, 3] expected")
+    lead = tuple(positions.shape[:-2])
+    frames = lead[0] if lead else 1
+    p = positions.shape[-2]
+    n = locations.shape[-2]
     tensors = [positions, *extra, locations, rotations, half_dims, valid]
     if weights is not None:
         tensors.append(weights)
     for t in tensors:
         if t.device != device or t.dtype != torch.float32:
             raise ValueError("field kernels take float32 tensors on one CUDA device")
-    if positions.shape != (p, 3) or locations.shape != (n, 3) or half_dims.shape != (n, 3):
-        raise ValueError("positions [P, 3], locations and half_dims [N, 3] expected")
-    if rotations.shape != (n, 3, 3) or valid.shape != (n,):
-        raise ValueError("rotations [N, 3, 3] and valid [N] expected")
-    if weights is not None and weights.shape != (n, NUM_WEIGHTS):
-        raise ValueError(f"weights [N, {NUM_WEIGHTS}] expected (48-16-16-16-16-1 MLP)")
-    if p == 0 or n == 0 or n > 64:
-        raise ValueError("the kernels take 1 <= N <= 64 instances and P >= 1 points")
+    if positions.shape != (*lead, p, 3) or locations.shape != (*lead, n, 3):
+        raise ValueError("positions [(F,) P, 3] and locations [(F,) N, 3] expected")
+    if half_dims.shape != (*lead, n, 3) or rotations.shape != (*lead, n, 3, 3):
+        raise ValueError("half_dims [(F,) N, 3] and rotations [(F,) N, 3, 3] expected")
+    if valid.shape != (*lead, n):
+        raise ValueError("valid [(F,) N] expected")
+    if weights is not None and weights.shape != (*lead, n, NUM_WEIGHTS):
+        raise ValueError(f"weights [(F,) N, {NUM_WEIGHTS}] expected (48-16-16-16-16-1 MLP)")
+    if p == 0 or n == 0 or n > 64 or not 1 <= frames <= 65535:
+        raise ValueError("the kernels take 1 <= N <= 64 instances, P >= 1 points "
+                         "and 1 <= F <= 65535 frames")
     tau = torch.as_tensor(temperature, dtype=torch.float32, device=device).reshape(1)
     contig = [t.detach().contiguous() for t in (
         positions, *extra, locations, rotations, half_dims, valid)]
     w = None if weights is None else weights.detach().contiguous()
-    return contig, w, tau
+    return lead, frames, contig, w, tau
+
+
+def _count(launcher, frames: int):
+    launcher.launches += 1
+    if frames > 1:
+        launcher.batched_launches += 1
 
 
 def field_forward(positions, locations, rotations, half_dims, valid, weights,
                   temperature, position_scale: float = 100.0):
-    """Launch K1: ``(u [P], w [P, N], grad_x u [P, 3])``. ``weights``
-    ``[N, 1617]`` or ``None`` (box only); ``valid`` float [N]."""
-    (pos, loc, rot, half, val), w, tau = _prepare(
+    """Launch K1 (K4a for F > 1 frames): ``(u [(F,) P], w [(F,) P, N],
+    grad_x u [(F,) P, 3])``. ``weights`` ``[(F,) N, 1617]`` or ``None``
+    (box only); ``valid`` float ``[(F,) N]``."""
+    lead, frames, (pos, loc, rot, half, val), w, tau = _prepare(
         positions, locations, rotations, half_dims, valid, weights, temperature)
     lib = build_library()
-    p, n = pos.shape[0], loc.shape[0]
-    u = torch.empty(p, device=pos.device)
-    wts = torch.empty(p, n, device=pos.device)
-    grad = torch.empty(p, 3, device=pos.device)
+    p, n = pos.shape[-2], loc.shape[-2]
+    u = torch.empty(*lead, p, device=pos.device)
+    wts = torch.empty(*lead, p, n, device=pos.device)
+    grad = torch.empty(*lead, p, 3, device=pos.device)
     _check(lib.vsrd_fused_forward(
-        p, n, int(w is not None), _ptr(pos), _ptr(loc), _ptr(rot), _ptr(half), _ptr(val),
-        _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts), _ptr(grad),
-        _stream()), "K1 fused_forward")
-    field_forward.launches += 1
+        frames, p, n, int(w is not None), _ptr(pos), _ptr(loc), _ptr(rot), _ptr(half),
+        _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts), _ptr(grad),
+        _stream()), "K1/K4a fused_forward")
+    _count(field_forward, frames)
     return u, wts, grad
-
-
-field_forward.launches = 0
 
 
 def field_backward(positions, locations, rotations, half_dims, valid, weights,
                    temperature, du, dw, dg, position_scale: float = 100.0):
-    """Launch K2: the cotangents ``(dloc [N, 3], drot [N, 3, 3], dhalf
-    [N, 3], dweights [N, 1617] or None)`` of K1's inputs from those of its
-    outputs ``du [P]``, ``dw [P, N]``, ``dg [P, 3]``."""
-    (pos, dg_c, du_c, dw_c, loc, rot, half, val), w, tau = _prepare(
+    """Launch K2 (K4c for F > 1 frames): the cotangents ``(dloc [(F,) N,
+    3], drot [(F,) N, 3, 3], dhalf [(F,) N, 3], dweights [(F,) N, 1617] or
+    None)`` of K1's inputs from those of its outputs ``du [(F,) P]``,
+    ``dw [(F,) P, N]``, ``dg [(F,) P, 3]``. Frame f's cotangents come from
+    frame f's points only."""
+    lead, frames, (pos, dg_c, du_c, dw_c, loc, rot, half, val), w, tau = _prepare(
         positions, locations, rotations, half_dims, valid, weights, temperature,
         extra=(dg, du, dw))
     lib = build_library()
-    p, n = pos.shape[0], loc.shape[0]
-    if dg_c.shape != (p, 3) or du_c.shape != (p,) or dw_c.shape != (p, n):
-        raise ValueError("cotangents du [P], dw [P, N], dg [P, 3] expected")
+    p, n = pos.shape[-2], loc.shape[-2]
+    if dg_c.shape != (*lead, p, 3) or du_c.shape != (*lead, p) or dw_c.shape != (*lead, p, n):
+        raise ValueError("cotangents du [(F,) P], dw [(F,) P, N], dg [(F,) P, 3] expected")
     rdf = int(w is not None)
-    ctas = lib.vsrd_fused_backward_ctas(p, n, rdf)
+    ctas = lib.vsrd_fused_backward_ctas(frames, p, n, rdf)
     if ctas <= 0:
-        raise RuntimeError(f"K2 fused_backward: occupancy query failed ({-ctas})")
-    partial = torch.zeros(ctas, n, _PARAMS, device=pos.device)
-    out = torch.empty(n, _PARAMS, device=pos.device)
+        raise RuntimeError(f"K2/K4c fused_backward: occupancy query failed ({-ctas})")
+    partial = torch.zeros(frames, ctas, n, _PARAMS, device=pos.device)
+    out = torch.empty(*lead, n, _PARAMS, device=pos.device)
     _check(lib.vsrd_fused_backward(
-        p, n, rdf, _ptr(pos), _ptr(dg_c), _ptr(du_c), _ptr(dw_c), _ptr(loc), _ptr(rot),
-        _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), ctas,
-        _ptr(partial), _ptr(out), _stream()), "K2 fused_backward")
-    field_backward.launches += 1
-    dweights = out[:, :NUM_WEIGHTS] if rdf else None
-    geo = out[:, NUM_WEIGHTS:]
-    return geo[:, 0:3], geo[:, 3:12].reshape(n, 3, 3), geo[:, 12:15], dweights
-
-
-field_backward.launches = 0
+        frames, p, n, rdf, _ptr(pos), _ptr(dg_c), _ptr(du_c), _ptr(dw_c), _ptr(loc),
+        _ptr(rot), _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), ctas,
+        _ptr(partial), _ptr(out), _stream()), "K2/K4c fused_backward")
+    _count(field_backward, frames)
+    dweights = out[..., :NUM_WEIGHTS] if rdf else None
+    geo = out[..., NUM_WEIGHTS:]
+    return geo[..., 0:3], geo[..., 3:12].reshape(*lead, n, 3, 3), geo[..., 12:15], dweights
 
 
 def field_dir_forward(positions, directions, locations, rotations, half_dims, valid,
                       weights, temperature, position_scale: float = 100.0):
-    """Launch K3: ``(u [P], w [P, N], <dir, grad_x u> [P])``."""
-    (pos, dirs, loc, rot, half, val), w, tau = _prepare(
+    """Launch K3 (K4b for F > 1 frames): ``(u [(F,) P], w [(F,) P, N],
+    <dir, grad_x u> [(F,) P])``."""
+    lead, frames, (pos, dirs, loc, rot, half, val), w, tau = _prepare(
         positions, locations, rotations, half_dims, valid, weights, temperature,
         extra=(directions,))
     lib = build_library()
-    p, n = pos.shape[0], loc.shape[0]
-    if dirs.shape != (p, 3):
-        raise ValueError("directions [P, 3] expected")
-    u = torch.empty(p, device=pos.device)
-    wts = torch.empty(p, n, device=pos.device)
-    u_dot = torch.empty(p, device=pos.device)
+    p, n = pos.shape[-2], loc.shape[-2]
+    if dirs.shape != (*lead, p, 3):
+        raise ValueError("directions [(F,) P, 3] expected")
+    u = torch.empty(*lead, p, device=pos.device)
+    wts = torch.empty(*lead, p, n, device=pos.device)
+    u_dot = torch.empty(*lead, p, device=pos.device)
     _check(lib.vsrd_dir_forward(
-        p, n, int(w is not None), _ptr(pos), _ptr(dirs), _ptr(loc), _ptr(rot), _ptr(half),
-        _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts),
-        _ptr(u_dot), _stream()), "K3 dir_forward")
-    field_dir_forward.launches += 1
+        frames, p, n, int(w is not None), _ptr(pos), _ptr(dirs), _ptr(loc), _ptr(rot),
+        _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts),
+        _ptr(u_dot), _stream()), "K3/K4b dir_forward")
+    _count(field_dir_forward, frames)
     return u, wts, u_dot
-
-
-field_dir_forward.launches = 0
 
 
 def reset_launch_counts():
     for fn in (field_forward, field_backward, field_dir_forward):
         fn.launches = 0
+        fn.batched_launches = 0
+
+
+reset_launch_counts()
 
 
 class _FusedFieldWithGrad(torch.autograd.Function):
@@ -263,11 +287,11 @@ class _FusedFieldWithGrad(torch.autograd.Function):
     def backward(ctx, du, dw, dg):
         positions, locations, rotations, half_dims, valid, weights, temperature = (
             ctx.saved_tensors)
-        p, n = positions.shape[0], locations.shape[0]
+        lead, n = positions.shape[:-1], locations.shape[-2]
         zeros = positions.new_zeros
-        du = zeros(p) if du is None else du
-        dw = zeros(p, n) if dw is None else dw
-        dg = zeros(p, 3) if dg is None else dg
+        du = zeros(lead) if du is None else du
+        dw = zeros(*lead, n) if dw is None else dw
+        dg = zeros(*lead, 3) if dg is None else dg
         dloc, drot, dhalf, dweights = field_backward(
             positions, locations, rotations, half_dims, valid, weights, temperature,
             du, dw, dg, ctx.position_scale)
@@ -276,29 +300,35 @@ class _FusedFieldWithGrad(torch.autograd.Function):
 
 def fused_field_with_grad(positions, locations, rotations, half_dims, valid, weights,
                           temperature, position_scale: float = 100.0):
-    """(u [P], w [P, N], grad_x u [P, 3]) of the scene field, differentiable
-    with respect to locations, rotations, half_dims and weights.
+    """(u [(F,) P], w [(F,) P, N], grad_x u [(F,) P, 3]) of the scene field,
+    differentiable with respect to locations, rotations, half_dims and
+    weights; an optional leading frame axis on positions and parameters.
 
-    CUDA tensors go through K1 and, for the backward, K2; CPU tensors
-    through the plain twin ``fused_field.scene_eval_with_grad``."""
+    CUDA tensors go through K1 (K4a) and, for the backward, K2 (K4c); CPU
+    tensors through the plain twins ``fused_field.scene_eval_with_grad``
+    and ``scene_eval_with_grad_batched``."""
     if positions.device.type == "cuda":
         return _FusedFieldWithGrad.apply(positions, locations, rotations, half_dims,
                                          valid, weights, temperature, position_scale)
     if positions.device.type == "cpu":
-        return fused_field.scene_eval_with_grad(positions, locations, rotations, half_dims,
-                                                valid, weights, temperature, position_scale)
+        twin = (fused_field.scene_eval_with_grad_batched if positions.ndim == 3
+                else fused_field.scene_eval_with_grad)
+        return twin(positions, locations, rotations, half_dims, valid, weights, temperature,
+                    position_scale)
     raise ValueError(f"no field kernel for device {positions.device}")
 
 
 def fused_field_dir_forward(positions, directions, locations, rotations, half_dims, valid,
                             weights, temperature, position_scale: float = 100.0):
-    """(u [P], w [P, N], <dir, grad_x u> [P]), forward only: K3 on CUDA
-    tensors, the plain twin ``fused_field.scene_eval_dir`` on CPU ones."""
+    """(u [(F,) P], w [(F,) P, N], <dir, grad_x u> [(F,) P]), forward only:
+    K3 (K4b) on CUDA tensors, the plain twins ``fused_field.scene_eval_dir``
+    and ``scene_eval_dir_batched`` on CPU ones."""
     if positions.device.type == "cuda":
         return field_dir_forward(positions, directions, locations, rotations, half_dims,
                                  valid, weights, temperature, position_scale)
     if positions.device.type == "cpu":
-        return fused_field.scene_eval_dir(positions, directions, locations, rotations,
-                                          half_dims, valid, weights, temperature,
-                                          position_scale)
+        twin = (fused_field.scene_eval_dir_batched if positions.ndim == 3
+                else fused_field.scene_eval_dir)
+        return twin(positions, directions, locations, rotations, half_dims, valid, weights,
+                    temperature, position_scale)
     raise ValueError(f"no field kernel for device {positions.device}")

@@ -16,7 +16,9 @@ and the union over instances is ``w = softmax(-d/tau + (valid-1)*1e30)``,
 The field-with-gradient and directional-derivative functions at the end
 are the plain versions of kernels K1/K2 and K3
 (``rendering/field_kernels.py``): autograd gives the spatial gradient
-(and, for K2, the backward), ``torch.func.jvp`` the directional one.
+(and, for K2, the backward), ``torch.func.jvp`` the directional one. Their
+``_batched`` forms, a loop over a leading frame axis, are the plain
+versions of the frame-batched launches K4a/K4c and K4b.
 """
 
 from __future__ import annotations
@@ -151,3 +153,32 @@ def scene_eval_dir(positions, directions, locations, rotations, half_dims,
             field, (positions.detach(),), (directions.detach(),)
         )
     return u, w, u_dot
+
+
+def scene_eval_with_grad_batched(positions, locations, rotations, half_dims, valid,
+                                 weights, temperature, position_scale: float = 100.0):
+    """Plain twin of kernels K4a (forward) and K4c (its backward):
+    ``scene_eval_with_grad`` per frame of positions ``[F, P, 3]`` with
+    ``[F, N, ...]`` parameters (``weights [F, N, 1617]`` or ``None``) and
+    one temperature, stacked to ``(u [F, P], w [F, P, N], grad_x u [F, P,
+    3])``."""
+    outs = [
+        scene_eval_with_grad(positions[f], locations[f], rotations[f], half_dims[f],
+                             valid[f], None if weights is None else weights[f],
+                             temperature, position_scale)
+        for f in range(positions.shape[0])
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def scene_eval_dir_batched(positions, directions, locations, rotations, half_dims,
+                           valid, weights, temperature, position_scale: float = 100.0):
+    """Plain twin of kernel K4b: ``scene_eval_dir`` per frame of
+    ``[F, P, 3]`` positions and directions, stacked."""
+    outs = [
+        scene_eval_dir(positions[f], directions[f], locations[f], rotations[f],
+                       half_dims[f], valid[f], None if weights is None else weights[f],
+                       temperature, position_scale)
+        for f in range(positions.shape[0])
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*outs))

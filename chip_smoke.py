@@ -11,7 +11,9 @@ Phases (any failure exits non-zero):
    (6 valid), box-only and with the residual field, each against its plain
    PyTorch twin on the same inputs on the card (max error relative to the
    twin's scale <= 2e-4; the twin evaluated in float64, see kernel_phase),
-   with kernel and twin times (median of 20; the twin in float32); then
+   with kernel and twin times (median of 20 calls on the host clock, each
+   ending in a synchronize; the twin in float32), the kernel's time on
+   CUDA events over 20 launches, and its bound (kernel_bound); then
    the frame-batched launches K4a/K4c at F=8 frames x P=199,000 and K4b at
    F=8 x P=99,000, whose frames differ in boxes and validity (frame 1 has
    no valid instance, the others 6 or 8), each frame against the twin the
@@ -34,7 +36,11 @@ The second-to-last line is a JSON object with one entry per kernel of the
 two paths: its launches in its path, its largest absolute error against
 the twin and that error relative to the twin's scale (the pullback to the
 field weights sums ~200k points, so its absolute error is large where its
-relative one is not), and its time beside the twin's. The last line is
+relative one is not), its time (``ms``, host clock; ``event_ms``, CUDA
+events) beside the twin's, its bound and what sets it, and
+``library_ms`` null: no single PyTorch call computes these functions (the
+softmin union of per-instance box SDFs plus a per-instance MLP with
+LayerNorm and GELU, with tangents or its reverse sweep). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,6 +60,18 @@ REPEATS = 20
 FRAMES = 8                # the batched path's frames (seeds 0-7)
 BATCH_VALID = (6, 0, 8, 6, 8, 6, 8, 6)   # valid instances per frame, kernel phase
 PALLAS = "vsrd_tpu/rendering/pallas_field.py"
+# the H100's published peaks (SXM, dense): HBM bytes/s, f32 FLOP/s outside
+# the tensor cores, TF32 tensor-core FLOP/s (3xTF32 runs three products)
+PEAK_BYTES, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
+# per point and active instance, counted from csrc/field_common.cuh (an FMA
+# is 2 FLOP): the residual field's f32 work outside the tensor cores (K1:
+# the forward with 3 tangents; K3: with 1; K2: the one-tangent forward of
+# stage 1, the recomputed forward and the reverse matvecs) and K2's
+# weight-gradient multiply-adds on the tensor cores; box-only, the box SDF
+# and union arithmetic (a rough count: those kernels are bound by bytes)
+FLOP_RDF = {"K1": 2 * 6208, "K2": 2 * 9312, "K3": 2 * 3104}
+MAC_TENSOR = {"K1": 0, "K2": 3169, "K3": 0}
+FLOP_BOX = {"K1": 90, "K2": 200, "K3": 70}
 
 
 def fail(message: str):
@@ -85,6 +103,51 @@ def synthetic_frames(seeds, device: str, **kwargs):
 def err(a, b) -> float:
     scale = float(b.abs().max()) if b.numel() else 0.0
     return float((a - b).abs().max()) / max(scale, 1.0)
+
+
+def event_ms(fn, repeats: int = REPEATS) -> float:
+    """Mean ms per call on CUDA events over ``repeats`` back-to-back calls,
+    after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def kernel_bound(kind: str, rdf: bool, x: dict) -> tuple[float, str]:
+    """The least time (ms) the card could take for one call of kernel
+    ``kind`` (K1, K2 or K3 and their frame-batched launches) on the inputs
+    ``x``, and whether bytes or operations set it: each input read once and
+    each output written once at the HBM rate, against this run's active
+    point-instances (valid ones, or all N in a frame with none valid) at
+    the f32 and tensor-core peaks."""
+    valid = x["valid"].reshape(-1, x["valid"].shape[-1])
+    n = valid.shape[-1]
+    active = sum(int(c) if c > 0 else n for c in (valid > 0.5).sum(-1).tolist())
+    frames, p = valid.shape[0], x["pos"].shape[-2]
+    pairs = active * p
+    weights = frames * n * 1617 * 4 if rdf else 0
+    if kind == "K1":         # pos in; u, w, grad_x u out
+        nbytes = frames * p * (12 + 4 + 4 * n + 12) + weights
+    elif kind == "K2":       # pos, dg, du, dw in; one row per instance out
+        nbytes = frames * p * (12 + 12 + 4 + 4 * n) + weights
+        nbytes += frames * n * 4 * (1632 if rdf else 15)
+    else:                    # pos, dirs in; u, w, u_dot out
+        nbytes = frames * p * (12 + 12 + 4 + 4 * n + 4) + weights
+    times = {
+        "bytes": nbytes / PEAK_BYTES,
+        "operations": max(pairs * (FLOP_RDF[kind] if rdf else FLOP_BOX[kind]) / PEAK_F32,
+                          pairs * 6 * MAC_TENSOR[kind] * rdf / (PEAK_TF32 / 3)),
+    }
+    bound_by = max(times, key=times.get)
+    return times[bound_by] * 1e3, bound_by
 
 
 def median_ms(fn, repeats: int = REPEATS) -> float:
@@ -216,16 +279,19 @@ def kernel_phase(rdf: bool, batched: bool, report: dict, errors: dict):
     torch.cuda.synchronize()
     twin_fwd = (fused_field.scene_eval_with_grad_batched if batched
                 else fused_field.scene_eval_with_grad)
+    fwd = lambda: fk.field_forward(*fwd_args)  # noqa: E731
+    bwd = lambda: fk.field_backward(*fwd_args, x["du"], x["dw"], x["dg"])  # noqa: E731
     report[f"{names[0]}_{mode}"] = dict(
         frames=frames, max_abs_err=fwd_abs,
         max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[0]}_{mode}_")),
-        ms=median_ms(lambda: fk.field_forward(*fwd_args)),
-        plain_ms=median_ms(lambda: torch.no_grad()(twin_fwd)(*fwd_args)))
+        ms=median_ms(fwd), event_ms=event_ms(fwd),
+        plain_ms=median_ms(lambda: torch.no_grad()(twin_fwd)(*fwd_args)),
+        bound=kernel_bound("K1", rdf, x))
     report[f"{names[1]}_{mode}"] = dict(
         frames=frames, max_abs_err=bwd_abs,
         max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[1]}_{mode}_")),
-        ms=median_ms(lambda: fk.field_backward(*fwd_args, x["du"], x["dw"], x["dg"])),
-        plain_ms=bwd_plain)
+        ms=median_ms(bwd), event_ms=event_ms(bwd), plain_ms=bwd_plain,
+        bound=kernel_bound("K2", rdf, x))
     if batched and rdf:
         isolation_check(fk, fwd_args, x)
     del x, outs_k, grads_k
@@ -245,11 +311,12 @@ def kernel_phase(rdf: bool, batched: bool, report: dict, errors: dict):
             errors[key] = max(errors.get(key, 0.0), err(frame_of(a, f).to(arbiter), b))
             dir_abs = max(dir_abs, float((frame_of(a, f).to(arbiter) - b).abs().max()))
     twin_dir = fused_field.scene_eval_dir_batched if batched else fused_field.scene_eval_dir
+    dirf = lambda: fk.field_dir_forward(*dir_args)  # noqa: E731
     report[f"{names[2]}_{mode}"] = dict(
         frames=frames, max_abs_err=dir_abs,
         max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[2]}_{mode}_")),
-        ms=median_ms(lambda: fk.field_dir_forward(*dir_args)),
-        plain_ms=median_ms(lambda: twin_dir(*dir_args)))
+        ms=median_ms(dirf), event_ms=event_ms(dirf),
+        plain_ms=median_ms(lambda: twin_dir(*dir_args)), bound=kernel_bound("K3", rdf, x))
 
 
 def isolation_check(fk, fwd_args, x):
@@ -367,8 +434,9 @@ def main():
     for name, value in sorted(errors.items()):
         print(f"[kernels] {name}: rel err {value:.3e}", flush=True)
     for name, entry in sorted(report.items()):
-        print(f"[kernels] {name} (F={entry['frames']}): {entry['ms']:.3f} ms "
-              f"(plain {entry['plain_ms']:.3f} ms) on {card}", flush=True)
+        print(f"[kernels] {name} (F={entry['frames']}): {entry['ms']:.3f} ms host, "
+              f"{entry['event_ms']:.3f} ms events (plain {entry['plain_ms']:.3f} ms; bound "
+              f"{entry['bound'][0]:.3f} ms by {entry['bound'][1]}) on {card}", flush=True)
     bad = {k: v for k, v in errors.items() if not v <= TOLERANCE}
     if bad:
         fail(f"kernels disagree with their twins beyond {TOLERANCE}: {bad}")
@@ -421,9 +489,13 @@ def main():
             "max_abs_err": entry["max_abs_err"],
             "max_rel_err": entry["max_rel_err"],
             "ms": entry["ms"],
+            "event_ms": entry["event_ms"],
             "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound"][0],
+            "bound_by": entry["bound"][1],
+            "library_ms": None,
         })
-    if not all(math.isfinite(k["ms"]) for k in kernels):
+    if not all(math.isfinite(k["ms"]) and math.isfinite(k["event_ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"[time] whole run: {time.perf_counter() - script_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -203,7 +203,7 @@ def setup():
         key = jax.random.PRNGKey(SCENES[i])
         seed = int(jax.random.randint(key, (), 0, 2**31 - 1))
         jf = jfm.synthetic_frame(key, **KW)
-        tf = tfm.synthetic_frame(seed, **KW)
+        tf = tfm.synthetic_frame(seed, **KW, device="cpu")
         jframes.append(jf._replace(target_index=jnp.asarray(target, jnp.int32)))
         tframes.append(dataclasses.replace(tf, target_index=target))
     params = jopt.init_params_batched(jax.random.PRNGKey(1), F, N, JCFG)
@@ -265,7 +265,7 @@ def test_batched_compute_loss_and_gradients_match_jax(setup, shared_noise, use_r
         return jnp.sum(total), (total, aux)
 
     (_, (total, aux)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    tp = convert.params_from_jax(params)
+    tp = convert.params_from_jax(params, device="cpu")
     total2, aux2, grads2 = _port_loss_and_grads(tp, tfb, TCFG, use_rdf, ray_idx, step)
 
     assert total2.shape == (F,)
@@ -280,7 +280,7 @@ def test_batched_compute_loss_and_gradients_match_jax(setup, shared_noise, use_r
     valid = np.asarray(jfb.valid)
     np.testing.assert_array_equal(aux2["row_to_col"].numpy()[valid],
                                   np.asarray(aux["row_to_col"])[valid])
-    ref = dict(topt.tree_leaves(convert.params_from_jax(jax.device_get(grads))))
+    ref = dict(topt.tree_leaves(convert.params_from_jax(jax.device_get(grads), device="cpu")))
     for (path, _), g in zip(topt.tree_leaves(tp), grads2):
         expected = ref[path].numpy()
         if not use_rdf and (path[0] == "hyper" or path[-1] == "embeddings"):
@@ -299,10 +299,10 @@ def test_batched_path_matches_single_frame_path(setup, shared_noise, use_rdf, st
     _, tframes, _, tfb, params, ray_idx = setup
     cfg = TCFG if strict else topt.OptimizationConfig(**CFG)
     total_b, aux_b, grads_b = _port_loss_and_grads(
-        convert.params_from_jax(params), tfb, cfg, use_rdf, ray_idx)
+        convert.params_from_jax(params, device="cpu"), tfb, cfg, use_rdf, ray_idx)
     for f in range(F):
         shared_noise["frame"] = f
-        params_f = convert.params_from_jax(jax.tree.map(lambda a: a[f], params))
+        params_f = convert.params_from_jax(jax.tree.map(lambda a: a[f], params), device="cpu")
         total_s, aux_s, grads_s = _port_loss_and_grads(params_f, tframes[f], cfg, use_rdf,
                                                        ray_idx[f])
         np.testing.assert_allclose(float(total_b[f]), float(total_s), rtol=1e-5, atol=1e-8)
@@ -333,8 +333,8 @@ def test_three_batched_steps_across_the_warmup_boundary_match_jax(setup, shared_
     jstate = tx.init(params)
     jparams, jstate, jscalars = jopt.optimize_chunk(params, jstate, jfb, jax.random.PRNGKey(0),
                                                     jnp.asarray(0), JCFG, 3)
-    tp = convert.params_from_jax(params)
-    tstate = convert.adam_state_from_jax(jax.device_get(tx.init(params)))
+    tp = convert.params_from_jax(params, device="cpu")
+    tstate = convert.adam_state_from_jax(jax.device_get(tx.init(params)), device="cpu")
     tscalars = topt.optimize_chunk(tp, tstate, tfb, 0, 0, TCFG, 3)
     for name in ("loss", "silhouette_loss", "eikonal_loss", "iou_3d", "num_matched"):
         assert tscalars[name].shape == (3, F), name
@@ -345,7 +345,7 @@ def test_three_batched_steps_across_the_warmup_boundary_match_jax(setup, shared_
     jstate = jax.device_get(jstate)
     assert tstate["count"] == int(jstate["count"]) == 3
     for key in ("mu", "nu"):
-        ref = dict(topt.tree_leaves(convert.params_from_jax(jstate[key])))
+        ref = dict(topt.tree_leaves(convert.params_from_jax(jstate[key], device="cpu")))
         for path, value in topt.tree_leaves(tstate[key]):
             assert _rel(value.numpy(), ref[path].numpy()) <= 1e-4, (key, path)
 
@@ -369,7 +369,7 @@ def test_optimize_frames_batched_scalars_and_metric_cadence(setup):
         assert leaf.shape[0] == F and torch.all(torch.isfinite(leaf)), path
     # frame 0 starts from optimize_frame's init with the same seed
     first = topt.init_params(torch.Generator().manual_seed(7), N, cfg)
-    stacked = topt.init_params_batched(7, F, N, cfg)
+    stacked = topt.init_params_batched(7, F, N, cfg, device="cpu")
     for (path, a), (_, b) in zip(topt.tree_leaves(first), topt.tree_leaves(stacked)):
         torch.testing.assert_close(b[0], a, rtol=0, atol=0)
 
@@ -425,8 +425,8 @@ def test_hypernetwork_apply_on_stacked_params():
 def test_convert_carries_stacked_params_and_adam_state():
     params = jax.device_get(jopt.init_params_batched(jax.random.PRNGKey(4), F, N, JCFG))
     state = jax.device_get(jopt.make_optimizer(JCFG, params).init(params))
-    tp = dict(topt.tree_leaves(convert.params_from_jax(params)))
-    ts = convert.adam_state_from_jax(state)
+    tp = dict(topt.tree_leaves(convert.params_from_jax(params, device="cpu")))
+    ts = convert.adam_state_from_jax(state, device="cpu")
     leaves = jax.tree_util.tree_leaves_with_path(params)
     assert len(leaves) == len(tp)
     for jpath, leaf in leaves:

@@ -27,7 +27,7 @@ def _frames(layout="compact", **kwargs):
     key = jax.random.PRNGKey(3)
     seed = int(jax.random.randint(key, (), 0, 2**31 - 1))
     jf = jfm.synthetic_frame(key, layout=layout, **kwargs)
-    tf = tfm.synthetic_frame(seed, layout=layout, **kwargs)
+    tf = tfm.synthetic_frame(seed, layout=layout, **kwargs, device="cpu")
     return jf, tf
 
 

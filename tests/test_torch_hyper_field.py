@@ -28,7 +28,7 @@ def test_hypernetwork_apply_matches_converted_params():
     params = jhf.init_hyper_field(jax.random.PRNGKey(3))
     emb = np.random.default_rng(0).normal(size=(4, 256)).astype(np.float32)
     ref = np.asarray(jhf.hypernetwork_apply(params, jnp.asarray(emb)))
-    tp = {"layers": convert.to_torch_tree(list(jax.device_get(params)["layers"]))}
+    tp = {"layers": convert.to_torch_tree(list(jax.device_get(params)["layers"]), device="cpu")}
     got = thf.hypernetwork_apply(tp, torch.from_numpy(emb)).numpy()
     assert got.shape == (4, 1617)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())

@@ -7,16 +7,20 @@ with a card and no JAX):
   on the card (box SDF, encoding, MLP with LayerNorm and GELU, forward
   tangents, online softmin union, the union's and the instance's reverse
   sweeps), is compiled for the host with the C++ compiler and driven
-  point by point by a small harness that mirrors the kernels' loops. What
-  this cannot reach (shared-memory staging, the CTA partial sums and
-  their reduction) is covered by the card tests;
+  point by point by a small harness that mirrors the kernels' loops, with
+  the backward's layouts of the card (padded weight rows, a strided
+  residual column). What this cannot reach (shared-memory staging, the tensor-core
+  weight-gradient sums, the CTA partial sums and their reduction) is
+  covered by the card tests, and the choice of 3xTF32 for those sums by a
+  numpy emulation of TF32 rounding;
 * on the card (marker ``gpu``, skipped without one): the CUDA kernels
   against the twins, including N=12 (two instance groups of shared
   memory), an all-invalid frame, and K2's run-to-run repeatability; the
   frame-batched launches K4a/K4b/K4c on a batch whose frames differ in
   validity (one with no valid instance), K4c's repeatability and frame
-  isolation, and F=1 through the batched entry points against the
-  single-frame launch.
+  isolation, F=1 through the batched entry points against the
+  single-frame launch, and K4c on a grid with ragged edges (F=3, N=5, P
+  not a multiple of the backward's chunks).
 
 Tolerances, with their reasons:
 * host math: u and w 2e-6 absolute (+ 2e-7 relative): the same f32
@@ -125,11 +129,24 @@ extern "C" void host_forward(int P, int N, int K, const float* pos, const float*
     forward<1>(P, N, pos, dirs, loc, rot, half, valid, W, tau, scale, u, w, grad);
 }
 
-// K2's per-point work, summed over points in order: out [N, kParams]
+// K2's per-point work, summed over points in order: out [N, kParams]. As on
+// the card, the weights are copied into the Padded layout and the LayerNorm
+// residuals kept in a strided column.
 extern "C" void host_backward(int P, int N, const float* pos, const float* dg, const float* du,
                               const float* dw, const float* loc, const float* rot,
                               const float* half, const float* valid, const float* W, float tau,
                               float scale, float* out) {
+  std::vector<float> padded(W ? N * Padded::kSize : 0);
+  for (int i = 0; W && i < N; ++i)
+    for (int l = 0; l <= 4; ++l) {
+      const int in = l == 0 ? kEnc : kHid, rows = l == 4 ? 1 : kHid;
+      for (int o = 0; o < rows; ++o)
+        for (int c = 0; c <= in; ++c)
+          padded[i * Padded::kSize + Padded::at(l, o, c)] =
+              W[i * kWeights + layer_offset(l) + o * (in + 1) + c];
+    }
+  constexpr int stride = 2;
+  std::vector<float> column(4 * kRes * stride);
   const bool any_valid = any_valid_of(N, valid);
   std::vector<unsigned char> active(N);
   for (int i = 0; i < N; ++i) active[i] = instance_active(valid[i], any_valid);
@@ -151,7 +168,8 @@ extern "C" void host_backward(int P, int N, const float* pos, const float* dg, c
       HostSink sink{out + i * kParams};
       float geo[kGeo] = {};
       instance_backward(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                        W ? W + i * kWeights : nullptr, 1.f / scale, d[i], td[i], geo, sink);
+                        W ? padded.data() + i * Padded::kSize : nullptr, 1.f / scale, d[i],
+                        td[i], geo, sink, ColumnStore{column.data(), stride});
       for (int k = 0; k < kGeo; ++k) out[i * kParams + kWeights + k] += geo[k];
     }
   }
@@ -440,3 +458,55 @@ def test_one_frame_through_the_batched_entry_points_equals_the_single_launch(cud
                     fk.field_dir_forward(*args, weights, tau)):
         assert torch.equal(a[0], b)
 
+
+
+@pytest.mark.gpu
+def test_batched_backward_on_a_ragged_grid_matches_the_twin_on_card(cuda):
+    """K4c at F=3 frames of N=5 instances and P=2,777 points, which is not a
+    multiple of the backward's 128-point chunks nor of its 1,024-point
+    tiles: each frame against the twin."""
+    x = _batched_inputs((4, 0, 5), n=5, p=2777, seed=3)
+    got = _batched_pullback(x, True, cuda, fk.fused_field_with_grad)
+    ref = _batched_pullback(x, True, cuda, tff.scene_eval_with_grad_batched)
+    names = ("u", "w", "grad", "dloc", "drot", "dhalf", "dweights")
+    for name, a, b in zip(names, got, ref):
+        assert a.shape == b.shape and a.shape[0] == 3, name
+        for f in range(3):
+            assert _err(a[f], b[f]) <= 2e-4, (name, f)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round to 10 mantissa bits, ties away from zero."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_weight_gradient_sums_need_the_split_tf32_products():
+    """The dW sums of the backward's tensor-core sink, sum_p hbar a^T +
+    thbar ta^T, shaped as the main path's (16 x 17 outputs, bounded
+    activations, heavy-tailed cotangents), emulated in numpy: one TF32
+    product per term is off by more than 1e-4 relative to scale of the
+    float64 sums, the 3xTF32 split (big*big + big*small + small*big) stays
+    within 1e-6. Each product is rounded to f32 as the tensor cores do and
+    the sums run in float64, so that what is measured is the operands'
+    rounding alone: the f32 accumulation adds the same error to every
+    variant, plain f32 included."""
+    rng = np.random.default_rng(0)
+    points = 4096
+    a = np.tanh(rng.normal(size=(2 * points, 17))).astype(np.float32)
+    a[:points, 16] = 1.0        # the bias column: a = 1, ta = 0
+    a[points:, 16] = 0.0
+    h = (rng.standard_t(2.5, size=(16, 2 * points)) * 1e-3).astype(np.float32)
+    exact = h.astype(np.float64) @ a.astype(np.float64)
+    scale = np.abs(exact).max()
+
+    def f32_sum(x, y):          # products rounded to f32, summed in float64
+        return (x.astype(np.float64)[:, :, None] * y.astype(np.float64)[None]).astype(
+            np.float32).astype(np.float64).sum(axis=1)
+
+    one = f32_sum(_tf32(h), _tf32(a))
+    hb, ab = _tf32(h), _tf32(a)
+    hs, as_ = _tf32(h - hb), _tf32(a - ab)
+    three = f32_sum(hs, ab) + f32_sum(hb, as_) + f32_sum(hb, ab)
+    assert np.abs(one - exact).max() / scale > 1e-4
+    assert np.abs(three - exact).max() / scale <= 1e-6

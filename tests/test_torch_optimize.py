@@ -44,7 +44,7 @@ def setup():
     seed = int(jax.random.randint(key, (), 0, 2**31 - 1))
     kw = dict(num_views=2, image_size=(32, 48), num_instances=3, max_instances=4)
     jf = jfm.synthetic_frame(key, **kw)
-    tf = tfm.synthetic_frame(seed, **kw)
+    tf = tfm.synthetic_frame(seed, **kw, device="cpu")
     params = jopt.init_params(jax.random.PRNGKey(1), 4, JCFG)
     rng = np.random.default_rng(0)
     # boxes that see the scene, embeddings that differ per instance
@@ -109,7 +109,7 @@ def _compare_loss_and_gradients(setup, tcfg, use_rdf):
 
     (total, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
 
-    tp = convert.params_from_jax(params)
+    tp = convert.params_from_jax(params, device="cpu")
     leaves = [t.requires_grad_() for _, t in topt.tree_leaves(tp)]
     total2, aux2 = topt.compute_loss(tp, tf, step, tcfg, use_rdf,
                                      ray_indices=torch.as_tensor(ray_idx))
@@ -120,7 +120,7 @@ def _compare_loss_and_gradients(setup, tcfg, use_rdf):
         np.testing.assert_allclose(float(aux2["losses"][name].detach()), float(value), rtol=1e-5,
                                    atol=1e-8, err_msg=name)
     np.testing.assert_array_equal(aux2["row_to_col"].numpy()[:3], np.asarray(aux["row_to_col"])[:3])
-    ref = dict(topt.tree_leaves(convert.params_from_jax(jax.device_get(grads))))
+    ref = dict(topt.tree_leaves(convert.params_from_jax(jax.device_get(grads), device="cpu")))
     for (path, _), g in zip(topt.tree_leaves(tp), grads2):
         expected = ref[path].numpy()
         got = np.zeros_like(expected) if g is None else g.numpy()
@@ -139,8 +139,8 @@ def test_three_steps_across_the_warmup_boundary_match(setup, shared_noise):
     jstate = tx.init(params)
     jstep = jax.jit(jopt.train_step, static_argnames=("cfg", "tx"))
     jparams = params
-    tp = convert.params_from_jax(params)
-    tstate = convert.adam_state_from_jax(jax.device_get(jstate))
+    tp = convert.params_from_jax(params, device="cpu")
+    tstate = convert.adam_state_from_jax(jax.device_get(jstate), device="cpu")
     optimizer = topt.Adam(TCFG)
     for step in range(3):
         jparams, jstate, jscalars = jstep(jparams, jstate, jf, jnp.asarray(step),
@@ -154,10 +154,10 @@ def test_three_steps_across_the_warmup_boundary_match(setup, shared_noise):
 
     jparams, jstate = jax.device_get(jparams), jax.device_get(jstate)
     assert tstate["count"] == int(jstate["count"]) == 3
-    before = dict(topt.tree_leaves(convert.params_from_jax(params)))
-    after = dict(topt.tree_leaves(convert.params_from_jax(jparams)))
-    mu = dict(topt.tree_leaves(convert.params_from_jax(jstate["mu"])))
-    nu = dict(topt.tree_leaves(convert.params_from_jax(jstate["nu"])))
+    before = dict(topt.tree_leaves(convert.params_from_jax(params, device="cpu")))
+    after = dict(topt.tree_leaves(convert.params_from_jax(jparams, device="cpu")))
+    mu = dict(topt.tree_leaves(convert.params_from_jax(jstate["mu"], device="cpu")))
+    nu = dict(topt.tree_leaves(convert.params_from_jax(jstate["nu"], device="cpu")))
     tmu = dict(topt.tree_leaves(tstate["mu"]))
     tnu = dict(topt.tree_leaves(tstate["nu"]))
     for path, value in topt.tree_leaves(tp):
@@ -195,7 +195,7 @@ def test_default_config_runs_the_box_only_directional_coarse_pass(monkeypatch):
 
     monkeypatch.setattr(field_kernels, "fused_field_dir_forward", spy)
     frame = tfm.synthetic_frame(3, num_views=2, image_size=(32, 48), num_instances=2,
-                                max_instances=3)
+                                max_instances=3, device="cpu")
     cfg = topt.OptimizationConfig(num_steps=4, warmup_steps=2, num_rays=16, num_samples=6,
                                   checkpoint_interval=2, metric_interval=2)
     params, scalars = topt.optimize_frame(frame, 0, cfg)
@@ -223,7 +223,7 @@ def test_residual_coarse_pass_goes_through_k3_with_the_field(setup, monkeypatch)
     monkeypatch.setattr(field_kernels, "fused_field_dir_forward", spy)
     cfg = topt.OptimizationConfig(kernel_box_coarse=False, **CFG)
     for use_rdf in (False, True):
-        tp = convert.params_from_jax(params)
+        tp = convert.params_from_jax(params, device="cpu")
         leaves = [t.requires_grad_() for _, t in topt.tree_leaves(tp)]
         total, aux = topt.compute_loss(tp, tf, 5, cfg, use_rdf,
                                        generator=torch.Generator().manual_seed(0),

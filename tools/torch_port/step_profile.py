@@ -19,6 +19,11 @@ views at 376x1408, 8 instances, 1000 rays, 100+100 samples).
 as frame 0 and the scenes of seeds 1..F-1, stacked, with params from
 ``init_params_batched``; a step then runs all F frames, and the report
 adds the wall time per frame-step.
+
+Each field kernel's device time per step is printed by name: K1/K4a and
+K3/K4b (``forward_kernel<3, .>`` and ``<1, .>``), and the three kernels of
+one K2/K4c call (stage 1 ``union_cotangent_kernel``, stage 2
+``instance_backward_kernel``, then ``reduce_partials_kernel``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from vsrd_tpu_torch.pipeline import optimize as opt, sharded  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk  # noqa: E402
+
+FIELD_KERNELS = ("forward_kernel", "union_cotangent_kernel", "instance_backward_kernel",
+                 "reduce_partials_kernel")
 
 
 def main(argv=None):
@@ -105,6 +113,11 @@ def main(argv=None):
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    device {e.self_device_time_total / per_step:8.3f} ms/step "
                   f"{e.count / args.profiled_steps:6.0f}x  {e.key[:90]}", flush=True)
+        for e in sorted((e for e in kernels if any(k in e.key for k in FIELD_KERNELS)),
+                        key=lambda e: e.key):
+            name = e.key.split("(")[0].replace("void ", "").replace("vsrd::", "")
+            print(f"    field  {e.self_device_time_total / per_step:8.3f} ms/step "
+                  f"{e.count / args.profiled_steps:6.0f}x  {name}", flush=True)
         host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                       key=lambda e: -e.self_cpu_time_total)[:6]
         for e in host:

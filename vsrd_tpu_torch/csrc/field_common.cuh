@@ -24,8 +24,10 @@
 
 #if defined(__CUDACC__)
 #define VSRD_HD __host__ __device__ __forceinline__
+#define VSRD_UNROLL _Pragma("unroll")
 #else
 #define VSRD_HD inline
+#define VSRD_UNROLL
 #endif
 
 namespace vsrd {
@@ -39,7 +41,9 @@ constexpr int kParams = kWeights + kGeo;  // per-instance cotangent row
 constexpr int kGroup = 8;         // instances whose weights share memory
 
 // offset of layer l's [out][in + 1] block in the flattened weights
-VSRD_HD int layer_offset(int l) { return l == 0 ? 0 : kHid * (kEnc + 1) + (l - 1) * kHid * (kHid + 1); }
+VSRD_HD constexpr int layer_offset(int l) {
+  return l == 0 ? 0 : kHid * (kEnc + 1) + (l - 1) * kHid * (kHid + 1);
+}
 
 VSRD_HD float frequency(int k) { return (float)(3.14159265358979323846 * (double)(1 << k)); }
 
@@ -310,6 +314,35 @@ VSRD_HD void union_backward(int n, const unsigned char* active, float* d, float*
   }
 }
 
+// Where the reverse sweep keeps the forward's LayerNorm residuals of
+// layers 1..4 (index l - 1): y[16], tc[16], istd and P = mean(y tc), kRes
+// values per layer, at col[(l * kRes + e) * stride]: on the card a thread's
+// own column of a shared-memory block (stride = threads, so neighbouring
+// threads hit neighbouring banks).
+constexpr int kRes = 2 * kHid + 2;
+
+struct ColumnStore {
+  float* col;
+  int stride;
+  VSRD_HD float& y(int l, int i) const { return col[(l * kRes + i) * stride]; }
+  VSRD_HD float& tc(int l, int i) const { return col[(l * kRes + kHid + i) * stride]; }
+  VSRD_HD float& istd(int l) const { return col[(l * kRes + 2 * kHid) * stride]; }
+  VSRD_HD float& p(int l) const { return col[(l * kRes + 2 * kHid + 1) * stride]; }
+};
+
+// The weights instance_backward reads: the hypernetwork's 1617 in rows that
+// start 16 bytes apart (52 floats for layer 0, 20 for the others), so that a
+// row loads four at a time from shared memory; weight (o, i) of layer l at
+// Padded::at(l, o, i), the bias at i = in.
+struct Padded {
+  static constexpr int kSize = kHid * 52 + 3 * kHid * 20 + 20;
+  VSRD_HD static constexpr int row(int l) { return l == 0 ? 52 : 20; }
+  VSRD_HD static constexpr int offset(int l) {
+    return l == 0 ? 0 : kHid * 52 + (l - 1) * kHid * 20;
+  }
+  VSRD_HD static constexpr int at(int l, int o, int i) { return offset(l) + o * row(l) + i; }
+};
+
 // Reverse sweep of the one-tangent forward of one instance along the
 // world direction v, with cotangents dbar (on d) and tdbar (on td).
 // Adds the point's box-parameter cotangents to geo = [dloc 3 | drot 9 |
@@ -317,12 +350,14 @@ VSRD_HD void union_backward(int n, const unsigned char* active, float* d, float*
 // sink.layer(l, in, out, a, ta, hbar, thbar), with
 // dW_l[o][i] = hbar[o] a[i] + thbar[o] ta[i] (a[in] = 1, ta[in] = 0).
 // Every call reaches the sink in the same order (layers 4..0), which the
-// CUDA sink relies on for its block-wide barriers.
+// CUDA sink relies on for its block-wide barriers. W is laid out as
+// Padded; the LayerNorm residuals go to ``store``. The layer loops are
+// unrolled on the card so that every per-layer width is a constant there.
 template <class Sink>
 VSRD_HD void instance_backward(const float x[3], const float v[3], const float* loc,
                                const float* rot, const float* half, const float* W,
                                float inv_scale, float dbar, float tdbar, float geo[kGeo],
-                               Sink& sink) {
+                               Sink& sink, ColumnStore store) {
   float tl[1][3];
   for (int c = 0; c < 3; ++c) tl[0][c] = v[0] * rot[c] + v[1] * rot[3 + c] + v[2] * rot[6 + c];
   BoxEval<1> box(x, loc, rot, half, tl);
@@ -335,7 +370,7 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
     // ---- forward, keeping each LayerNorm's y, tc and istd ----
     float h[kHid], th[1][kHid];
     for (int o = 0; o < kHid; ++o) {
-      h[o] = W[o * (kEnc + 1) + kEnc];
+      h[o] = W[Padded::at(0, o, kEnc)];
       th[0][o] = 0.f;
     }
     for (int dim = 0; dim < 3; ++dim) {
@@ -345,36 +380,38 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
         const float tf = frequency(k) * tsym[dim];
         const int c = dim * 2 * kFreq + 2 * k;
         for (int o = 0; o < kHid; ++o) {
-          const float wc = W[o * (kEnc + 1) + c], ws = W[o * (kEnc + 1) + c + 1];
+          const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
           h[o] += wc * cs + ws * sn;
           th[0][o] += (ws * cs - wc * sn) * tf;
         }
       }
     }
-    float ys[4][kHid], tcs[4][kHid], istds[4], ps[4];
     float raw = 0.f, traw = 0.f;
+    VSRD_UNROLL
     for (int l = 1; l <= 4; ++l) {
-      float tc[1][kHid], ty[1][kHid];
-      layer_norm_fwd<1>(h, th, ys[l - 1], tc, ty, istds[l - 1]);
+      float y[kHid], tc[1][kHid], ty[1][kHid], istd;
+      layer_norm_fwd<1>(h, th, y, tc, ty, istd);
       float p = 0.f;
       for (int i = 0; i < kHid; ++i) {
-        tcs[l - 1][i] = tc[0][i];
-        p += ys[l - 1][i] * tc[0][i];
+        store.y(l - 1, i) = y[i];
+        store.tc(l - 1, i) = tc[0][i];
+        p += y[i] * tc[0][i];
       }
-      ps[l - 1] = p * (1.f / kHid);
+      store.istd(l - 1) = istd;
+      store.p(l - 1) = p * (1.f / kHid);
       float a[kHid], ta[kHid];
       for (int i = 0; i < kHid; ++i) {
-        const Gelu g(ys[l - 1][i]);
-        a[i] = ys[l - 1][i] * g.cdf;
-        ta[i] = (g.cdf + ys[l - 1][i] * g.pdf) * ty[0][i];
+        const Gelu g(y[i]);
+        a[i] = y[i] * g.cdf;
+        ta[i] = (g.cdf + y[i] * g.pdf) * ty[0][i];
       }
-      const float* Wl = W + layer_offset(l);
+      const float* Wl = W + Padded::offset(l);
       const int out = l < 4 ? kHid : 1;
       for (int o = 0; o < out; ++o) {
-        float acc = Wl[o * (kHid + 1) + kHid], tacc = 0.f;
+        float acc = Wl[o * Padded::row(l) + kHid], tacc = 0.f;
         for (int i = 0; i < kHid; ++i) {
-          acc += Wl[o * (kHid + 1) + i] * a[i];
-          tacc += Wl[o * (kHid + 1) + i] * ta[i];
+          acc += Wl[o * Padded::row(l) + i] * a[i];
+          tacc += Wl[o * Padded::row(l) + i] * ta[i];
         }
         if (l < 4) {
           h[o] = acc;
@@ -392,11 +429,15 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
     float hbar[kHid], thbar[kHid];
     hbar[0] = dbar * dsig + tdbar * traw * dsig * (1.f - 2.f * sig);
     thbar[0] = tdbar * dsig;
-    int out = 1;
+    VSRD_UNROLL
     for (int l = 4; l >= 1; --l) {
-      const float* y = ys[l - 1];
-      const float* tc = tcs[l - 1];
-      const float istd = istds[l - 1], p = ps[l - 1];
+      const int out = l == 4 ? 1 : kHid;
+      float y[kHid], tc[kHid];
+      for (int i = 0; i < kHid; ++i) {
+        y[i] = store.y(l - 1, i);
+        tc[i] = store.tc(l - 1, i);
+      }
+      const float istd = store.istd(l - 1), p = store.p(l - 1);
       float a[kHid], ta[kHid], ty[kHid], g1[kHid], g2[kHid];
       for (int i = 0; i < kHid; ++i) {
         const Gelu g(y[i]);
@@ -407,16 +448,21 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
         ta[i] = g1[i] * ty[i];
       }
       sink.layer(l, kHid, out, a, ta, hbar, thbar);
-      const float* Wl = W + layer_offset(l);
+      const float* Wl = W + Padded::offset(l);
+      // row by row, so that each weight row is read in order and the 16
+      // sums advance side by side (each still in the order of o)
+      float abar[kHid], tabar[kHid];
+      for (int i = 0; i < kHid; ++i) abar[i] = tabar[i] = 0.f;
+      for (int o = 0; o < out; ++o) {
+        for (int i = 0; i < kHid; ++i) {
+          abar[i] += Wl[o * Padded::row(l) + i] * hbar[o];
+          tabar[i] += Wl[o * Padded::row(l) + i] * thbar[o];
+        }
+      }
       float ybar[kHid], tybar[kHid];
       for (int i = 0; i < kHid; ++i) {
-        float abar = 0.f, tabar = 0.f;
-        for (int o = 0; o < out; ++o) {
-          abar += Wl[o * (kHid + 1) + i] * hbar[o];
-          tabar += Wl[o * (kHid + 1) + i] * thbar[o];
-        }
-        ybar[i] = abar * g1[i] + tabar * ty[i] * g2[i];
-        tybar[i] = tabar * g1[i];
+        ybar[i] = abar[i] * g1[i] + tabar[i] * ty[i] * g2[i];
+        tybar[i] = tabar[i] * g1[i];
       }
       // LayerNorm pair: the tangent transposes like the primal; the
       // primal input also picks up the second-order term through istd, y
@@ -441,7 +487,6 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
         thbar[i] = istd * (tybar[i] - s_tyb * inv_c - y[i] * s_ytyb * inv_c);
         hbar[i] = istd * (ybar[i] - s_yb * inv_c - y[i] * s_yyb * inv_c) + g[i] - g_mean;
       }
-      out = kHid;
     }
 
     // layer 0 and the encoding
@@ -465,7 +510,7 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
         const int c = dim * 2 * kFreq + 2 * k;
         float xc = 0.f, xs = 0.f, txc = 0.f, txs = 0.f;
         for (int o = 0; o < kHid; ++o) {
-          const float wc = W[o * (kEnc + 1) + c], ws = W[o * (kEnc + 1) + c + 1];
+          const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
           xc += wc * hbar[o];
           xs += ws * hbar[o];
           txc += wc * thbar[o];

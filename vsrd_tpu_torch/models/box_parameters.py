@@ -36,11 +36,13 @@ def init_box_parameters(
     batch_size: int,
     num_instances: int,
     num_features: int = 256,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> dict[str, torch.Tensor]:
     """Initial parameters. As in the reference, ONE random embedding is
     shared by every instance; instances differ only by their boxes until
-    gradients pull them apart. ``generator`` must live on ``device``."""
+    gradients pull them apart. ``generator`` must live on ``device``, which
+    defaults to the generator's."""
+    device = generator.device if device is None else device
     embedding = torch.rand(num_features, generator=generator, device=device)
     return {
         "locations": torch.zeros(batch_size, num_instances, 3, device=device),

@@ -44,12 +44,13 @@ def init_hyper_field(
     hyper_in_channels: int = 256,
     hyper_out_channels_list: Sequence[int] = (256, 256, 256, 256),
     final_channels: int = 1,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ):
     """Hypernetwork parameters: hidden blocks of [weight-norm Linear ->
     LayerNorm -> GELU] and a final weight-norm Linear emitting the
     flattened field-MLP weights. Weight norm: w = g * v / ||v||_row with g
-    initialised to ||v||_row."""
+    initialised to ||v||_row. ``device`` defaults to the generator's."""
+    device = generator.device if device is None else device
     _, num_neurons = field_layer_sizes(in_channels, out_channels_list, final_channels)
     hyper_ins = [hyper_in_channels, *hyper_out_channels_list]
     hyper_outs = [*hyper_out_channels_list, sum(num_neurons)]

@@ -111,9 +111,10 @@ def build_frame_data(
     target_index: int,
     max_instances: int | None = None,
     num_candidates: int = 1 << 18,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> FrameData:
-    """Assemble a FrameData on ``device`` from host-side numpy arrays.
+    """Assemble a FrameData on ``device`` (the card unless the caller asks
+    for another) from host-side numpy arrays.
 
     ``soft_masks`` entries must already be aligned to target instance
     order and zero-filled for invisible instances.
@@ -200,7 +201,7 @@ def synthetic_frame(
     with_images: bool = False,
     num_candidates: int = 1 << 18,
     layout: str = "compact",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> FrameData:
     """A synthetic multi-view scene with ground-truth boxes: cars as boxes
     in front of a camera rig moving along +z, masks rendered analytically

@@ -119,9 +119,10 @@ def cosine_annealing(progress, maximum, minimum):
 
 
 def init_params(generator: torch.Generator, max_instances: int, cfg: OptimizationConfig,
-                device: torch.device | str = "cpu"):
+                device: torch.device | str | None = None):
     """Per-frame learnable parameters: box parameters + hypernetwork, as
-    nested dicts of tensors (the JAX pytree's layout)."""
+    nested dicts of tensors (the JAX pytree's layout), on ``device`` (by
+    default the generator's)."""
     boxes = box_parameters.init_box_parameters(
         generator, 1, max_instances, cfg.num_features, device=device)
     boxes = {k: v[0] for k, v in boxes.items()}
@@ -137,7 +138,7 @@ def init_params(generator: torch.Generator, max_instances: int, cfg: Optimizatio
 
 
 def init_params_batched(seed: int, num_frames: int, max_instances: int,
-                        cfg: OptimizationConfig, device: torch.device | str = "cpu"):
+                        cfg: OptimizationConfig, device: torch.device | str = "cuda"):
     """Independent per-frame params stacked along a leading frame axis.
     Frame f takes the f-th draw of one CPU generator seeded with ``seed``,
     so frame 0 starts where ``optimize_frame(frame, seed)`` starts."""

@@ -6,7 +6,10 @@ Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
 * K1 ``field_forward``: u [P], w [P, N] and grad_x u [P, 3] of the union
   SDF (``csrc/fused_forward.cu``; TPU ``_fwd_kernel``);
 * K2 ``field_backward``: the cotangents of K1's inputs from those of its
-  outputs (``csrc/fused_backward.cu``; TPU ``_bwd_kernel_manual``);
+  outputs (``csrc/fused_backward.cu``; TPU ``_bwd_kernel_manual``). One
+  call launches three CUDA kernels: the union's cotangents per point, the
+  per-instance reverse sweep with its weight-gradient sums on the tensor
+  cores (3xTF32), and the ordered reduction of the CTAs' partial rows;
 * K3 ``field_dir_forward``: u, w and the derivative of u along a
   per-point direction, forward only (``csrc/dir_forward.cu``; TPU
   ``_dir_fwd_kernel``).
@@ -120,10 +123,10 @@ def build_library() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vsrd_fused_forward.argtypes = [i32] * 4 + [ptr] * 7 + [f32] + [ptr] * 4
     lib.vsrd_dir_forward.argtypes = [i32] * 4 + [ptr] * 8 + [f32] + [ptr] * 4
-    lib.vsrd_fused_backward.argtypes = [i32] * 4 + [ptr] * 10 + [f32, i32] + [ptr] * 3
-    lib.vsrd_fused_backward_ctas.argtypes = [i32] * 4
+    lib.vsrd_fused_backward.argtypes = [i32] * 4 + [ptr] * 10 + [f32, i32] + [ptr] * 5
+    lib.vsrd_fused_backward_tiles.argtypes = [i32]
     for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward,
-               lib.vsrd_fused_backward, lib.vsrd_fused_backward_ctas):
+               lib.vsrd_fused_backward, lib.vsrd_fused_backward_tiles):
         fn.restype = i32
     _library = lib
     return lib
@@ -223,18 +226,21 @@ def field_backward(positions, locations, rotations, half_dims, valid, weights,
     if dg_c.shape != (*lead, p, 3) or du_c.shape != (*lead, p) or dw_c.shape != (*lead, p, n):
         raise ValueError("cotangents du [(F,) P], dw [(F,) P, N], dg [(F,) P, 3] expected")
     rdf = int(w is not None)
-    ctas = lib.vsrd_fused_backward_ctas(frames, p, n, rdf)
-    if ctas <= 0:
-        raise RuntimeError(f"K2/K4c fused_backward: occupancy query failed ({-ctas})")
-    partial = torch.zeros(frames, ctas, n, _PARAMS, device=pos.device)
-    out = torch.empty(*lead, n, _PARAMS, device=pos.device)
+    tiles = lib.vsrd_fused_backward_tiles(p)
+    row = _PARAMS if rdf else _GEO
+    # scratch: d_bar and td_bar [2, F, N, P], the CTAs' partial rows [F, N, tiles, row];
+    # the kernels write every element before reading it
+    cot = torch.empty(2, frames, n, p, device=pos.device)
+    partial = torch.empty(frames, n, tiles, row, device=pos.device)
+    out = torch.empty(*lead, n, row, device=pos.device)
     _check(lib.vsrd_fused_backward(
         frames, p, n, rdf, _ptr(pos), _ptr(dg_c), _ptr(du_c), _ptr(dw_c), _ptr(loc),
-        _ptr(rot), _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), ctas,
-        _ptr(partial), _ptr(out), _stream()), "K2/K4c fused_backward")
+        _ptr(rot), _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), tiles,
+        _ptr(cot[0]), _ptr(cot[1]), _ptr(partial), _ptr(out), _stream()),
+        "K2/K4c fused_backward")
     _count(field_backward, frames)
     dweights = out[..., :NUM_WEIGHTS] if rdf else None
-    geo = out[..., NUM_WEIGHTS:]
+    geo = out[..., row - _GEO:]
     return geo[..., 0:3], geo[..., 3:12].reshape(*lead, n, 3, 3), geo[..., 12:15], dweights
 
 

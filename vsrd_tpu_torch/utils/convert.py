@@ -5,7 +5,8 @@ The JAX package keeps the per-frame parameters as a pytree
 as ``{"mu": <params tree>, "nu": <params tree>, "count": int}``. Given as
 numpy arrays (``jax.device_get`` of either), these become the port's
 nested dicts of tensors with the same keys, so that both packages compute
-the same thing from the same state.
+the same thing from the same state. The tensors go to the card unless
+the caller asks for another device (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 
-def to_torch_tree(tree, device: torch.device | str = "cpu"):
+def to_torch_tree(tree, device: torch.device | str = "cuda"):
     """Nested dicts/lists of arrays -> the same structure of f32 tensors
     (integer and bool arrays keep their kind)."""
     if isinstance(tree, dict):
@@ -27,7 +28,7 @@ def to_torch_tree(tree, device: torch.device | str = "cpu"):
     return torch.as_tensor(np.ascontiguousarray(array), device=device)
 
 
-def params_from_jax(params, device: torch.device | str = "cpu"):
+def params_from_jax(params, device: torch.device | str = "cuda"):
     """The JAX package's params pytree (as numpy) -> the port's params."""
     return {
         "boxes": to_torch_tree(params["boxes"], device),
@@ -35,7 +36,7 @@ def params_from_jax(params, device: torch.device | str = "cpu"):
     }
 
 
-def adam_state_from_jax(state, device: torch.device | str = "cpu"):
+def adam_state_from_jax(state, device: torch.device | str = "cuda"):
     """The JAX package's Adam state ``{"mu", "nu", "count"}`` -> the port's."""
     return {
         "mu": params_from_jax(state["mu"], device),

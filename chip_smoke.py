@@ -6,7 +6,9 @@ hand-written kernels, and check what comes out.
 Phases (any failure exits non-zero):
 
 1. environment: a CUDA card, its name and power limit, the toolchain;
-2. build: compile the field kernels (csrc/*.cu) with nvcc for sm_90a;
+2. build: compile the field kernels (csrc/*.cu) with nvcc for sm_90a, one
+   nvcc per source in parallel; ptxas's registers and spills of every
+   kernel, and K1's shared memory and CTAs per SM;
 3. kernels: K1/K2 at P=199,000 points and K3 at P=99,000, N=8 instances
    (6 valid), box-only and with the residual field, each against its plain
    PyTorch twin on the same inputs on the card (max error relative to the
@@ -61,17 +63,29 @@ FRAMES = 8                # the batched path's frames (seeds 0-7)
 BATCH_VALID = (6, 0, 8, 6, 8, 6, 8, 6)   # valid instances per frame, kernel phase
 PALLAS = "vsrd_tpu/rendering/pallas_field.py"
 # the H100's published peaks (SXM, dense): HBM bytes/s, f32 FLOP/s outside
-# the tensor cores, TF32 tensor-core FLOP/s (3xTF32 runs three products)
+# the tensor cores, TF32 tensor-core FLOP/s
 PEAK_BYTES, PEAK_F32, PEAK_TF32 = 3.35e12, 67e12, 495e12
-# per point and active instance, counted from csrc/field_common.cuh (an FMA
-# is 2 FLOP): the residual field's f32 work outside the tensor cores (K1:
-# the forward with 3 tangents; K3: with 1; K2: the one-tangent forward of
-# stage 1, the recomputed forward and the reverse matvecs) and K2's
-# weight-gradient multiply-adds on the tensor cores; box-only, the box SDF
-# and union arithmetic (a rough count: those kernels are bound by bytes)
-FLOP_RDF = {"K1": 2 * 6208, "K2": 2 * 9312, "K3": 2 * 3104}
-MAC_TENSOR = {"K1": 0, "K2": 3169, "K3": 0}
-FLOP_BOX = {"K1": 90, "K2": 200, "K3": 70}
+# 3xTF32 runs three TF32 products for each f32 multiply-add: 2 FLOP at a
+# third of the TF32 rate
+RATE_3XTF32 = PEAK_TF32 / 3
+# The least work of each function per point and active instance, whatever
+# implements it, counted from csrc/field_common.cuh. MAC_TENSOR: the
+# residual MLP's layer products (48-16-16-16-16-1, 1,552 multiply-adds for a
+# value), which the tensor cores can run in 3xTF32: K1, the value and one
+# reverse sweep with respect to the position (three forward tangents would
+# do the same function with twice the products); K3, the value and one
+# tangent; K2, the value with one tangent (3,104), the reverse of both
+# (3,104) and the weight-gradient sums (3,169). FLOP_F32: the rest, at the
+# f32 peak (an FMA is 2 FLOP, a transcendental 1; rounded down): K1, box
+# SDF and its gradient 58, encoding 76 (24 sincos), 4 x LayerNorm + GELU
+# 660, sigmoid 22, their first-order reverses 904, the encoding's reverse
+# 126, the rotation back 18, the union 24; K3, the same forward with one
+# tangent; K2, that forward, the union's reverse and the second-order
+# reverse sweep. Box-only: the box SDF with its gradient or tangent and the
+# union (those kernels are bound by bytes).
+MAC_TENSOR = {"K1": 3104, "K2": 9377, "K3": 3104}
+FLOP_F32 = {"K1": 1888, "K2": 4770, "K3": 1816}
+FLOP_F32_BOX = {"K1": 100, "K2": 280, "K3": 92}
 
 
 def fail(message: str):
@@ -126,8 +140,9 @@ def kernel_bound(kind: str, rdf: bool, x: dict) -> tuple[float, str]:
     ``kind`` (K1, K2 or K3 and their frame-batched launches) on the inputs
     ``x``, and whether bytes or operations set it: each input read once and
     each output written once at the HBM rate, against this run's active
-    point-instances (valid ones, or all N in a frame with none valid) at
-    the f32 and tensor-core peaks."""
+    point-instances (valid ones, or all N in a frame with none valid) with
+    the layer products at the 3xTF32 rate and the rest at the f32 rate, the
+    two overlapped."""
     valid = x["valid"].reshape(-1, x["valid"].shape[-1])
     n = valid.shape[-1]
     active = sum(int(c) if c > 0 else n for c in (valid > 0.5).sum(-1).tolist())
@@ -143,8 +158,8 @@ def kernel_bound(kind: str, rdf: bool, x: dict) -> tuple[float, str]:
         nbytes = frames * p * (12 + 12 + 4 + 4 * n + 4) + weights
     times = {
         "bytes": nbytes / PEAK_BYTES,
-        "operations": max(pairs * (FLOP_RDF[kind] if rdf else FLOP_BOX[kind]) / PEAK_F32,
-                          pairs * 6 * MAC_TENSOR[kind] * rdf / (PEAK_TF32 / 3)),
+        "operations": max(pairs * (FLOP_F32[kind] if rdf else FLOP_F32_BOX[kind]) / PEAK_F32,
+                          pairs * 2 * MAC_TENSOR[kind] * rdf / RATE_3XTF32),
     }
     bound_by = max(times, key=times.get)
     return times[bound_by] * 1e3, bound_by
@@ -425,6 +440,10 @@ def main():
     for line in fk.build_info["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
+    for rdf in (True, False):
+        threads, smem, ctas = fk.rev_forward_info(8, rdf)
+        print(f"[build] rev_forward_kernel<{str(rdf).lower()}, {threads}> at N=8: {smem} bytes "
+              f"of dynamic shared memory, {ctas} CTAs of {threads} threads per SM", flush=True)
 
     report, errors = {}, {}
     for batched in (False, True):

@@ -5,14 +5,16 @@ with a card and no JAX):
 
 * on the CPU: ``csrc/field_common.cuh``, the per-point math that K1-K3 run
   on the card (box SDF, encoding, MLP with LayerNorm and GELU, forward
-  tangents, online softmin union, the union's and the instance's reverse
-  sweeps), is compiled for the host with the C++ compiler and driven
-  point by point by a small harness that mirrors the kernels' loops, with
-  the backward's layouts of the card (padded weight rows, a strided
-  residual column). What this cannot reach (shared-memory staging, the tensor-core
-  weight-gradient sums, the CTA partial sums and their reduction) is
-  covered by the card tests, and the choice of 3xTF32 for those sums by a
-  numpy emulation of TF32 rounding;
+  tangents, online softmin union, K1's reverse sweep, the union's and the
+  instance's reverse sweeps), is compiled for the host with the C++
+  compiler and driven point by point by a small harness that mirrors the
+  kernels' loops, with the card's layouts (padded weight rows, strided
+  residual columns) and, where a kernel takes its products from an object
+  (K1's sweep, K2's weight-gradient sink), scalar loops in its place. What
+  this cannot reach (shared-memory staging, the tensor-core layer products
+  and weight-gradient sums, the CTA partial sums and their reduction) is
+  covered by the card tests, and the choice of 3xTF32 for those products
+  by numpy emulations of TF32 rounding;
 * on the card (marker ``gpu``, skipped without one): the CUDA kernels
   against the twins, including N=12 (two instance groups of shared
   memory), an all-invalid frame, and K2's run-to-run repeatability; the
@@ -20,7 +22,10 @@ with a card and no JAX):
   validity (one with no valid instance), K4c's repeatability and frame
   isolation, F=1 through the batched entry points against the
   single-frame launch, and K4c on a grid with ragged edges (F=3, N=5, P
-  not a multiple of the backward's chunks).
+  not a multiple of the backward's chunks); K1/K4a against the float64
+  twin (N = 4, 5, 8, 10 and 12, a ragged P, the all-invalid frame), their
+  repeatability, F=1 through the batched entry point and frame isolation
+  at F=3.
 
 Tolerances, with their reasons:
 * host math: u and w 2e-6 absolute (+ 2e-7 relative): the same f32
@@ -70,6 +75,37 @@ struct HostSink {
   }
 };
 
+// instance_rev's layer products as scalar loops over one point's staging
+// rows; W: the instance's 1617 flattened weights
+struct HostProduct {
+  const float* W;
+  float rows[kHid], c[kHid], held[kHid];
+  float& at(int r) { return rows[r]; }
+  void sync() {}
+  void begin(const float* bias) {
+    for (int o = 0; o < kHid; ++o) c[o] = bias ? bias[o] : 0.f;
+  }
+  void forward(int l, int m) {
+    const int row = (l == 0 ? kEnc : kHid) + 1, k0 = l == 0 ? m * kHid : 0;
+    for (int o = 0; o < kHid; ++o)
+      for (int k = 0; k < kHid; ++k) c[o] += W[layer_offset(l) + o * row + k0 + k] * rows[k];
+  }
+  void reverse(int l) {
+    for (int i = 0; i < kHid; ++i)
+      for (int o = 0; o < kHid; ++o) c[i] += W[layer_offset(l) + o * (kHid + 1) + i] * rows[o];
+  }
+  void hold() {
+    for (int o = 0; o < kHid; ++o) held[o] = rows[o];
+  }
+  void reverse0(int m) {
+    for (int j = 0; j < kHid; ++j)
+      for (int o = 0; o < kHid; ++o) c[j] += W[o * (kEnc + 1) + m * kHid + j] * held[o];
+  }
+  void store() {
+    for (int o = 0; o < kHid; ++o) rows[o] = c[o];
+  }
+};
+
 bool any_valid_of(int n, const float* valid) {
   bool any = false;
   for (int i = 0; i < n; ++i) any |= valid[i] > 0.5f;
@@ -81,52 +117,77 @@ void to_local(const float* v, const float* R, float t[3]) {
   for (int c = 0; c < 3; ++c) t[c] = v[0] * R[c] + v[1] * R[3 + c] + v[2] * R[6 + c];
 }
 
-// the forward kernels' per-point loop: K = 3 is K1, K = 1 is K3
-template <int K>
-void forward(int P, int N, const float* pos, const float* dirs, const float* loc,
-             const float* rot, const float* half, const float* valid, const float* W,
-             float tau, float scale, float* u, float* w, float* grad) {
+}  // namespace
+
+// K3's per-point loop: one tangent, along dirs
+extern "C" void host_dir_forward(int P, int N, const float* pos, const float* dirs,
+                                 const float* loc, const float* rot, const float* half,
+                                 const float* valid, const float* W, float tau, float scale,
+                                 float* u, float* w, float* u_dot) {
   const bool any_valid = any_valid_of(N, valid);
   for (int p = 0; p < P; ++p) {
-    OnlineUnion<K> acc;
+    OnlineUnion<1> acc;
     for (int i = 0; i < N; ++i) {
       if (!instance_active(valid[i], any_valid)) {
         w[p * N + i] = 0.f;
         continue;
       }
       const float* R = rot + 9 * i;
-      float tl[K][3];
-      if (K == 3) {
-        for (int j = 0; j < K; ++j)
-          for (int c = 0; c < 3; ++c) tl[j][c] = R[j * 3 + c];
-      } else {
-        to_local(dirs + 3 * p, R, tl[0]);
-      }
-      float td[K];
-      const float d = instance_forward<K>(pos + 3 * p, loc + 3 * i, R, half + 3 * i,
+      float tl[1][3], td[1];
+      to_local(dirs + 3 * p, R, tl[0]);
+      const float d = instance_forward<1>(pos + 3 * p, loc + 3 * i, R, half + 3 * i,
                                           W ? W + i * kWeights : nullptr, 1.f / scale, tl, td);
       const float l = union_logit(d, valid[i], tau);
       w[p * N + i] = l;
       acc.add(l, d, td);
     }
-    float du[K];
+    float du[1];
     u[p] = acc.finish(tau, du);
-    for (int j = 0; j < K; ++j) grad[p * K + j] = du[j];
+    u_dot[p] = du[0];
     for (int i = 0; i < N; ++i)
       if (instance_active(valid[i], any_valid)) w[p * N + i] = acc.weight(w[p * N + i]);
   }
 }
 
-}  // namespace
-
-extern "C" void host_forward(int P, int N, int K, const float* pos, const float* dirs,
-                             const float* loc, const float* rot, const float* half,
-                             const float* valid, const float* W, float tau, float scale,
-                             float* u, float* w, float* grad) {
-  if (K == 3)
-    forward<3>(P, N, pos, dirs, loc, rot, half, valid, W, tau, scale, u, w, grad);
-  else
-    forward<1>(P, N, pos, dirs, loc, rot, half, valid, W, tau, scale, u, w, grad);
+// K1's per-point loop: with the residual field instance_rev, the sweep the
+// kernel runs, with its layer products as scalar loops and its residuals
+// in a strided column; box-only the box's analytic gradient, as on the card
+extern "C" void host_forward_rev(int P, int N, const float* pos, const float* loc,
+                                 const float* rot, const float* half, const float* valid,
+                                 const float* W, float tau, float scale, float* u, float* w,
+                                 float* grad) {
+  const bool any_valid = any_valid_of(N, valid);
+  std::vector<float> column(kRevResLayers * kRevRes * 2), misc(N * kRevMisc);
+  for (int i = 0; W && i < N; ++i)
+    for (int e = 0; e < kRevMisc; ++e) misc[i * kRevMisc + e] = W[i * kWeights + misc_index(e)];
+  for (int p = 0; p < P; ++p) {
+    OnlineUnion<3> acc;
+    for (int i = 0; i < N; ++i) {
+      if (!instance_active(valid[i], any_valid)) {
+        w[p * N + i] = 0.f;
+        continue;
+      }
+      float g[3], d;
+      if (W) {
+        HostProduct prod{W + i * kWeights};
+        d = instance_rev(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                         misc.data() + i * kRevMisc, 1.f / scale, prod,
+                         RevStore{column.data() + 1, 2}, g);
+      } else {
+        const BoxGrad box(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i);
+        local_to_world(rot + 9 * i, box.gl, g);
+        d = box.d;
+      }
+      const float l = union_logit(d, valid[i], tau);
+      w[p * N + i] = l;
+      acc.add(l, d, g);
+    }
+    float du[3];
+    u[p] = acc.finish(tau, du);
+    for (int j = 0; j < 3; ++j) grad[p * 3 + j] = du[j];
+    for (int i = 0; i < N; ++i)
+      if (instance_active(valid[i], any_valid)) w[p * N + i] = acc.weight(w[p * N + i]);
+  }
 }
 
 // K2's per-point work, summed over points in order: out [N, kParams]. As on
@@ -235,8 +296,9 @@ def host_lib(tmp_path_factory):
                     "-o", str(lib_path), str(source)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.host_forward.argtypes = [i32, i32, i32] + [ptr] * 7 + [f32, f32] + [ptr] * 3
+    lib.host_dir_forward.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32] + [ptr] * 3
     lib.host_backward.argtypes = [i32, i32] + [ptr] * 9 + [f32, f32, ptr]
+    lib.host_forward_rev.argtypes = [i32, i32] + [ptr] * 6 + [f32, f32] + [ptr] * 3
     return lib
 
 
@@ -244,21 +306,22 @@ def _ptr(a):
     return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _host_forward(lib, x, use_rdf, k):
+def _host_dir_forward(lib, x, use_rdf):
     p, n = x["pos"].shape[0], x["loc"].shape[0]
-    u, w, g = np.zeros(p, np.float32), np.zeros((p, n), np.float32), np.zeros((p, k), np.float32)
-    lib.host_forward(p, n, k, *map(_ptr, (x["pos"], x["dirs"], x["loc"], x["rot"], x["half"],
-                                          x["valid"], x["w"] if use_rdf else None)),
-                     TAU, SCALE, _ptr(u), _ptr(w), _ptr(g))
-    return u, w, g
+    u, w, ud = np.zeros(p, np.float32), np.zeros((p, n), np.float32), np.zeros(p, np.float32)
+    lib.host_dir_forward(p, n, *map(_ptr, (x["pos"], x["dirs"], x["loc"], x["rot"], x["half"],
+                                           x["valid"], x["w"] if use_rdf else None)),
+                         TAU, SCALE, _ptr(u), _ptr(w), _ptr(ud))
+    return u, w, ud
 
 
 @pytest.mark.parametrize("use_rdf", [False, True])
 @pytest.mark.parametrize("valid", [(1.0, 1.0, 1.0, 0.0), (0.0, 0.0, 0.0, 0.0)])
 def test_host_forward_math_matches_twin(host_lib, use_rdf, valid):
-    """K1's per-point math (three tangents) and K3's (one, along dirs)."""
+    """K1's per-point math (the reverse sweep) and K3's (one tangent, along
+    dirs)."""
     x = _inputs(valid=valid)
-    u, w, g = _host_forward(host_lib, x, use_rdf, 3)
+    u, w, g = _host_forward_rev(host_lib, x, use_rdf)
     u2, w2, g2 = _twin_pullback(x, use_rdf)[:3]
     np.testing.assert_allclose(u, u2, atol=2e-6, rtol=2e-7)
     np.testing.assert_allclose(w, w2, atol=2e-6, rtol=2e-7)
@@ -266,10 +329,45 @@ def test_host_forward_math_matches_twin(host_lib, use_rdf, valid):
     ud_twin = tff.scene_eval_dir(*(_t(x[k]) for k in ("pos", "dirs", "loc", "rot", "half",
                                                      "valid")),
                                  _t(x["w"]) if use_rdf else None, torch.tensor(TAU))
-    u3, w3, ud = _host_forward(host_lib, x, use_rdf, 1)
+    u3, w3, ud = _host_dir_forward(host_lib, x, use_rdf)
     np.testing.assert_allclose(u3, ud_twin[0].numpy(), atol=2e-6, rtol=2e-7)
     np.testing.assert_allclose(w3, ud_twin[1].numpy(), atol=2e-6, rtol=2e-7)
-    assert _err(ud[:, 0], ud_twin[2].numpy()) <= 2e-5
+    assert _err(ud, ud_twin[2].numpy()) <= 2e-5
+
+
+def _host_forward_rev(lib, x, use_rdf):
+    p, n = x["pos"].shape[0], x["loc"].shape[0]
+    u, w, g = np.zeros(p, np.float32), np.zeros((p, n), np.float32), np.zeros((p, 3), np.float32)
+    lib.host_forward_rev(p, n, *map(_ptr, (x["pos"], x["loc"], x["rot"], x["half"], x["valid"],
+                                           x["w"] if use_rdf else None)),
+                         TAU, SCALE, _ptr(u), _ptr(w), _ptr(g))
+    return u, w, g
+
+
+def _twin64(x, use_rdf, device="cpu"):
+    """The twin's (u, w, grad_x u) in float64 on the same float32 inputs."""
+    c = {k: _t(v).to(device, torch.float64) for k, v in x.items()}
+    with torch.no_grad():
+        outs = tff.scene_eval_with_grad(c["pos"], c["loc"], c["rot"], c["half"], c["valid"],
+                                        c["w"] if use_rdf else None,
+                                        torch.tensor(TAU, dtype=torch.float64, device=device))
+    return [t.cpu().numpy() for t in outs]
+
+
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("valid", [(1.0, 1.0, 1.0, 0.0), (0.0, 0.0, 0.0, 0.0)])
+def test_host_rev_forward_math_matches_float64_twin(host_lib, use_rdf, valid):
+    """K1's reverse form, per point: the value forward keeping the LayerNorm
+    residuals, one reverse sweep seeded with 1 per instance, the union
+    weighing the gradients online. The all-invalid frame is the one where
+    the uniform union multiplies each instance's error by up to
+    |1 + (u - d_i) / tau|."""
+    x = _inputs(seed=4, valid=valid)
+    u, w, g = _host_forward_rev(host_lib, x, use_rdf)
+    u2, w2, g2 = _twin64(x, use_rdf)
+    np.testing.assert_allclose(u, u2, atol=2e-6, rtol=2e-7)
+    np.testing.assert_allclose(w, w2, atol=2e-6, rtol=2e-7)
+    assert _err(g, g2) <= 2e-5
 
 
 @pytest.mark.parametrize("use_rdf", [False, True])
@@ -510,3 +608,166 @@ def test_weight_gradient_sums_need_the_split_tf32_products():
     three = f32_sum(hs, ab) + f32_sum(hb, as_) + f32_sum(hb, ab)
     assert np.abs(one - exact).max() / scale > 1e-4
     assert np.abs(three - exact).max() / scale <= 1e-6
+
+
+def _rev_union_gradient(products, points=2048, n=8, seed=0):
+    """u and grad_x u of the reverse form, in float64, with every layer
+    product that the reverse-form kernel runs on the tensor cores (W_l a for
+    layers 0-3, W_l^T hbar for layers 3..0) computed by ``products(A, B)``
+    on float32 operands; layer 4 and all per-point work stay exact. Inputs
+    shaped like the main path's (``chip_smoke.field_inputs``): points along
+    rays out to 100 m, where the encoding's top frequency reaches 128 pi,
+    boxes 5-40 m ahead, weights at the hypernetwork's output scale, and no
+    valid instance, so the union is uniform and weighs each instance's
+    gradient by up to |1 + (u - d_i) / tau|."""
+    from math import erf
+
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(points, 3)) * [0.3, 0.1, 1.0]
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    pos = dirs * rng.uniform(0.0, 100.0, size=(points, 1))
+    loc = np.stack([rng.uniform(-6, 6, n), rng.uniform(0.3, 0.8, n), rng.uniform(5, 40, n)], -1)
+    yaw = rng.uniform(-0.4, 0.4, n)
+    rot = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+                    for a in yaw])
+    half = rng.uniform([0.75, 0.75, 1.5], [1.0, 1.0, 2.5], size=(n, 3))
+    weights = (rng.normal(size=(n, fk.NUM_WEIGHTS)) * 0.3).astype(np.float32).astype(np.float64)
+    cdf_of = np.vectorize(lambda v: 0.5 * (1.0 + erf(v / np.sqrt(2.0))))
+    mm = lambda a, b: products(a.astype(np.float32), b.astype(np.float32))  # noqa: E731
+    distances, gradients = [], []
+    for i in range(n):
+        flat = weights[i]
+        mats = [flat[:16 * 49].reshape(16, 49)]
+        mats += [flat[16 * 49 + j * 272:16 * 49 + (j + 1) * 272].reshape(16, 17) for j in range(3)]
+        last = flat[16 * 49 + 3 * 272:].reshape(1, 17)
+        local = (pos - loc[i]) @ rot[i]
+        sign, q = np.sign(local), np.abs(local) - half[i]
+        r = np.maximum(q, 0.0)
+        outside = np.sqrt((r ** 2).sum(-1) + 1e-6)
+        gate = (q.max(-1) < 0).astype(np.float64)
+        d = outside - np.maximum(-q.max(-1), 0.0)
+        grad_local = sign * (r / outside[:, None] + gate[:, None] * np.eye(3)[np.argmax(q, -1)])
+        sym = np.stack([np.abs(local[:, 0]), local[:, 1], local[:, 2]]) / SCALE   # [3, P]
+        freq = np.pi * 2.0 ** np.arange(8)
+        phase = sym[:, None, :] * freq[None, :, None]                              # [3, 8, P]
+        enc = np.stack([np.cos(phase), np.sin(phase)], 2).reshape(48, points)
+        h = mm(mats[0][:, :48], enc) + mats[0][:, 48:]
+        residuals = []
+        for layer in (*mats[1:], last):
+            centered = h - h.mean(0)
+            istd = 1.0 / np.sqrt((centered ** 2).mean(0) + 1e-5)
+            y = centered * istd
+            cdf = cdf_of(y)
+            residuals.append((y, istd, cdf + y * np.exp(-0.5 * y * y) / np.sqrt(2 * np.pi)))
+            a = y * cdf
+            h = (mm(layer[:, :16], a) if layer is not last else last[:, :16] @ a) + layer[:, 16:]
+        sig = 1.0 / (1.0 + np.exp(1.0 - h[0]))
+        abar = last[:, :16].T * (sig * (1.0 - sig))
+        for j in range(3, -1, -1):
+            y, istd, dgelu = residuals[j]
+            ybar = abar * dgelu
+            hbar = istd * (ybar - ybar.mean(0) - y * (ybar * y).mean(0))
+            abar = mm(mats[j][:, :-1].T, hbar)
+        ebar = abar.reshape(3, 8, 2, points)
+        cs, sn = enc.reshape(3, 8, 2, points)[:, :, 0], enc.reshape(3, 8, 2, points)[:, :, 1]
+        symbar = (freq[None, :, None] * (cs * ebar[:, :, 1] - sn * ebar[:, :, 0])).sum(1)
+        symbar[0] *= sign[:, 0]
+        distances.append(d + sig)
+        gradients.append((grad_local + symbar.T / SCALE) @ rot[i].T)
+    d, g = np.stack(distances, -1), np.stack(gradients, 1)
+    logits = -d / TAU
+    w = np.exp(logits - logits.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    u = (w * d).sum(-1)
+    return u, ((w * (1.0 + (u[:, None] - d) / TAU))[..., None] * g).sum(1)
+
+
+def test_rev_forward_products_need_the_split_tf32_products():
+    """The reverse form's layer products on the tensor cores, emulated in
+    numpy at the main path's magnitudes (``_rev_union_gradient``): one TF32
+    product per term breaks the 2e-4 bar on grad_x u relative to its scale,
+    the 3xTF32 split (big*big + big*small + small*big) stays within 2e-6.
+    Products of TF32 operands are exact in f32, and the sums run in float64,
+    so that what is measured is the operands' rounding alone."""
+    f64 = lambda a, b: a.astype(np.float64) @ b.astype(np.float64)  # noqa: E731
+
+    def one(a, b):
+        return f64(_tf32(a), _tf32(b))
+
+    def three(a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        return f64(_tf32(a - ab), bb) + f64(ab, _tf32(b - bb)) + f64(ab, bb)
+
+    u, g = _rev_union_gradient(f64)
+    scale = max(float(np.abs(g).max()), 1.0)
+    u1, g1 = _rev_union_gradient(one)
+    u3, g3 = _rev_union_gradient(three)
+    assert float(np.abs(g1 - g).max()) / scale > 2e-4
+    assert float(np.abs(g3 - g).max()) / scale <= 2e-6
+    assert float(np.abs(u3 - u).max()) <= 2e-6
+
+
+def _field_args(x, device, use_rdf=True):
+    c = {k: _t(v).to(device) for k, v in x.items()}
+    return (c["pos"], c["loc"], c["rot"], c["half"], c["valid"], c["w"] if use_rdf else None,
+            torch.tensor(TAU, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("n, p, valid", [
+    (8, 3000, (1.0,) * 6 + (0.0,) * 2),   # the main path's shape
+    (10, 3000, (1.0,) * 9 + (0.0,)),      # the largest N of the 384-thread CTAs
+    (12, 3000, (1.0,) * 11 + (0.0,)),     # N > 10: the 128-thread CTAs
+    (4, 3000, (0.0,) * 4),                # no valid instance: uniform weights
+    (5, 2777, (1.0,) * 4 + (0.0,)),       # P not a multiple of the 128-point tiles
+])
+def test_rev_forward_matches_float64_twin_on_card(cuda, use_rdf, n, p, valid):
+    """K1 (tensor-core layer products in 3xTF32) against the twin in
+    float64, with its CTA size and shared memory at N, counted by its
+    launch counter."""
+    x = _inputs(n=n, p=p, valid=valid, seed=5)
+    threads, smem, ctas = fk.rev_forward_info(n, use_rdf)
+    assert threads == (384 if use_rdf and n <= 10 else 128) and smem <= 232_448 and ctas >= 1
+    before = fk.field_forward.launches
+    got = [t.cpu().numpy() for t in fk.field_forward(*_field_args(x, cuda, use_rdf))]
+    assert fk.field_forward.launches == before + 1
+    for name, a, b in zip(("u", "w", "grad"), got, _twin64(x, use_rdf, cuda)):
+        assert _err(a, b) <= 2e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+def test_rev_forward_is_repeatable_and_one_frame_batched_is_the_single_launch_on_card(
+        cuda, use_rdf):
+    """No atomics, sums in a fixed order: two launches agree bit for bit,
+    and F=1 through the batched entry point is the single-frame launch."""
+    x = _inputs(n=8, p=5000, valid=(1.0,) * 6 + (0.0,) * 2)
+    args = _field_args(x, cuda, use_rdf)
+    first, second = fk.field_forward(*args), fk.field_forward(*args)
+    batched = fk.field_forward(*[t if t is None or t.ndim == 0 else t[None] for t in args])
+    for a, b, c in zip(first, second, batched):
+        assert torch.equal(a, b) and torch.equal(c[0], a)
+
+
+@pytest.mark.gpu
+def test_rev_forward_keeps_frames_apart_on_card(cuda):
+    """K4a at F=3 frames of N=5 with ragged validity (4, 0 and 5 valid) and
+    P=2,777: each frame against the float64 twin, and changing one frame's
+    inputs leaves the others' outputs bit for bit."""
+    x = _batched_inputs((4, 0, 5), n=5, p=2777, seed=3)
+    args = _field_args(x, cuda)
+    before = fk.field_forward.batched_launches
+    got = [t.cpu().numpy() for t in fk.field_forward(*args)]
+    assert fk.field_forward.batched_launches == before + 1
+    for f in range(3):
+        ref = _twin64({k: v[f] for k, v in x.items()}, True, cuda)
+        for name, a, b in zip(("u", "w", "grad"), got, ref):
+            assert _err(a[f], b) <= 2e-4, (name, f)
+    moved = dict(x, pos=x["pos"].copy(), w=x["w"].copy())
+    moved["pos"][2] += 1.0
+    moved["w"][2] *= 0.5
+    for a, b in zip(fk.field_forward(*_field_args(moved, cuda)), got):
+        a = a.cpu().numpy()
+        np.testing.assert_array_equal(a[:2], b[:2])
+        assert not np.array_equal(a[2], b[2])

@@ -20,10 +20,10 @@ as frame 0 and the scenes of seeds 1..F-1, stacked, with params from
 ``init_params_batched``; a step then runs all F frames, and the report
 adds the wall time per frame-step.
 
-Each field kernel's device time per step is printed by name: K1/K4a and
-K3/K4b (``forward_kernel<3, .>`` and ``<1, .>``), and the three kernels of
-one K2/K4c call (stage 1 ``union_cotangent_kernel``, stage 2
-``instance_backward_kernel``, then ``reduce_partials_kernel``).
+Each field kernel's device time per step is printed by name: K1/K4a
+(``rev_forward_kernel<.>``), K3/K4b (``dir_forward_kernel<.>``), and the
+three kernels of one K2/K4c call (stage 1 ``union_cotangent_kernel``,
+stage 2 ``instance_backward_kernel``, then ``reduce_partials_kernel``).
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from vsrd_tpu_torch.pipeline import optimize as opt, sharded  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk  # noqa: E402
 
-FIELD_KERNELS = ("forward_kernel", "union_cotangent_kernel", "instance_backward_kernel",
-                 "reduce_partials_kernel")
+FIELD_KERNELS = ("rev_forward_kernel", "dir_forward_kernel", "union_cotangent_kernel",
+                 "instance_backward_kernel", "reduce_partials_kernel")
 
 
 def main(argv=None):

@@ -13,11 +13,12 @@
 //   block with the bias last.
 //
 // The functions here carry tangents forward (K of them, seeded in the
-// instance frame) and, for the backward kernel, run the reverse sweep of
-// the one-tangent forward. Everything is scalar f32 per thread, and the
-// functions compile for the host too (without nvcc), so that the math is
-// checked against the PyTorch twin on a machine without a GPU
-// (tests/test_torch_kernels.py).
+// instance frame; K3 and K2's stage 1), run the value forward and its
+// first-order reverse with respect to the position (K1/K4a), and, for the
+// backward kernel, run the reverse sweep of the one-tangent forward. The
+// per-point work is scalar f32 per thread, and the functions compile for
+// the host too (without nvcc), so that the math is checked against the
+// PyTorch twin on a machine without a GPU (tests/test_torch_kernels.py).
 #pragma once
 
 #include <math.h>
@@ -270,6 +271,280 @@ struct OnlineUnion {
   // the softmin weight of an instance with logit l
   VSRD_HD float weight(float l) const { return expf(l - mx) / z; }
 };
+
+// ---- The fine forward's reverse-sweep form (K1/K4a) ----
+//
+// d_i and grad_x d_i from the value forward and ONE reverse sweep seeded
+// with 1, with respect to the position only: no tangent is carried, and the
+// LayerNorm needs only its first-order reverse. The union then weighs each
+// instance's gradient online (OnlineUnion<3>). The sweep (instance_rev) is
+// written once; its layer products go through a product object, on the
+// card warp-wide mma.sync in 3xTF32 (fused_forward.cu), on the host scalar
+// loops (tests/test_torch_kernels.py).
+
+// Box value d and its gradient gl in the instance frame:
+//   d/dl_c = s_c (r_c / o + gate [c == jmax]).
+struct BoxGrad {
+  float l[3], s[3], gl[3];
+  float d;
+
+  VSRD_HD BoxGrad(const float x[3], const float* loc, const float* rot, const float* half) {
+    float rel[3], q[3], r[3];
+    for (int k = 0; k < 3; ++k) rel[k] = x[k] - loc[k];
+    for (int c = 0; c < 3; ++c) {
+      l[c] = rel[0] * rot[c] + rel[1] * rot[3 + c] + rel[2] * rot[6 + c];
+      s[c] = signf(l[c]);
+      q[c] = fabsf(l[c]) - half[c];
+      r[c] = fmaxf(q[c], 0.f);
+    }
+    const float o = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + 1e-6f);
+    // the max face with the JAX kernels' tie-break, as BoxEval, by selects
+    // (an array indexed by it would go to local memory on the card)
+    const bool first = q[0] > q[1];
+    const float q01 = first ? q[0] : q[1];
+    const bool third = q[2] > q01;
+    const float qmax = third ? q[2] : q01;
+    const int jmax = third ? 2 : (first ? 0 : 1);
+    const float gate = qmax < 0.f ? 1.f : 0.f, io = 1.f / o;
+    d = o - fmaxf(-qmax, 0.f);
+    for (int c = 0; c < 3; ++c) gl[c] = s[c] * (r[c] * io + (c == jmax ? gate : 0.f));
+  }
+};
+
+// Encoding of one (dim, k) pair for the reverse form: (cos, sin) of pi 2^k
+// sym, with the phase's factor pi applied inside the sine (sincospif on the
+// card), so that sym 2^k is exact and no rounding of pi 2^k enters.
+VSRD_HD void enc_pair_pi(float sym, int k, float& cs, float& sn) {
+  const float x = sym * (float)(1 << k);
+#if defined(__CUDACC__)
+  sincospif(x, &sn, &cs);
+#else
+  cs = (float)cos(3.14159265358979323846 * (double)x);
+  sn = (float)sin(3.14159265358979323846 * (double)x);
+#endif
+}
+
+// The 8 (cos, sin) pairs of one coordinate, channel order k*2 + (0 | 1):
+// exact (enc_pair_pi) at every STRIDE-th k, the others by the double-angle
+// formulas cos 2x = (c - s)(c + s), sin 2x = 2 s c, as the JAX package's
+// fast encoding (_encoding_trig, STRIDE 4) does. Each doubling grows the
+// error by up to 2.8x: ~2e-7 absolute with STRIDE 2 (the reverse form's
+// forward), ~1.3e-6 with STRIDE 4 (its reverse, where these values only
+// weigh the cotangents in enc_rev, so grad_x d moves by ~1e-6 of the
+// encoding's part of it).
+template <int STRIDE>
+VSRD_HD void enc_dim(float sym, float e[2 * kFreq]) {
+  VSRD_UNROLL
+  for (int k = 0; k < kFreq; ++k) {
+    if (k % STRIDE == 0) {
+      enc_pair_pi(sym, k, e[2 * k], e[2 * k + 1]);
+    } else {
+      const float c = e[2 * k - 2], s = e[2 * k - 1];
+      e[2 * k] = (c - s) * (c + s);
+      e[2 * k + 1] = 2.f * s * c;
+    }
+  }
+}
+
+// a = GELU(y) = y Phi(y), y = LayerNorm(h) (no affine); returns istd, and
+// Phi(y) in cdf. The primal arithmetic of layer_norm_fwd.
+VSRD_HD float ln_gelu(const float h[kHid], float y[kHid], float a[kHid], float cdf[kHid]) {
+  float mean = 0.f;
+  for (int i = 0; i < kHid; ++i) mean += h[i];
+  mean *= 1.f / kHid;
+  float var = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+    y[i] = h[i] - mean;
+    var += y[i] * y[i];
+  }
+  const float istd = 1.f / sqrtf(var * (1.f / kHid) + 1e-5f);
+  for (int i = 0; i < kHid; ++i) {
+    y[i] *= istd;
+    cdf[i] = Gelu(y[i]).cdf;
+    a[i] = y[i] * cdf[i];
+  }
+  return istd;
+}
+
+// First-order reverse of a = GELU(LayerNorm(h)) from its residuals y, istd
+// and Phi(y): ybar = abar (Phi(y) + y phi(y)),
+// hbar = istd (ybar - mean(ybar) - y mean(ybar y)).
+VSRD_HD void ln_gelu_rev(const float y[kHid], float istd, const float cdf[kHid],
+                         const float abar[kHid], float hbar[kHid]) {
+  float ybar[kHid], s = 0.f, sy = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+#if defined(__CUDA_ARCH__)
+    // the fast exponential: |y| < 4 after a LayerNorm of 16, so a few ulp
+    const float pdf = __expf(-0.5f * y[i] * y[i]) * 0.39894228040143268f;
+#else
+    const float pdf = expf(-0.5f * y[i] * y[i]) * 0.39894228040143268f;
+#endif
+    ybar[i] = abar[i] * (cdf[i] + y[i] * pdf);
+    s += ybar[i];
+    sy += ybar[i] * y[i];
+  }
+  s *= 1.f / kHid;
+  sy *= 1.f / kHid;
+  for (int i = 0; i < kHid; ++i) hbar[i] = istd * (ybar[i] - s - y[i] * sy);
+}
+
+// The cotangent of one encoding coordinate from its 16 channels' values e
+// and cotangents ebar, both in channel order (k*2 + (0 cos | 1 sin)):
+// sum_k f_k (cos_k sbar_k - sin_k cbar_k).
+VSRD_HD float enc_rev(const float e[2 * kFreq], const float ebar[2 * kFreq]) {
+  float sb = 0.f;
+  for (int k = 0; k < kFreq; ++k)
+    sb += frequency(k) * (e[2 * k] * ebar[2 * k + 1] - e[2 * k + 1] * ebar[2 * k]);
+  return sb;
+}
+
+// grad_x d from the local gradient: d/dx_k = sum_c R[k][c] gl[c]
+VSRD_HD void local_to_world(const float* rot, const float gl[3], float g[3]) {
+  for (int k = 0; k < 3; ++k)
+    g[k] = rot[3 * k] * gl[0] + rot[3 * k + 1] * gl[1] + rot[3 * k + 2] * gl[2];
+}
+
+// Where the sweep keeps the forward's residuals of layers 1..3 (index
+// l - 1): y[16], istd and Phi(y)[16], kRevRes values per layer, at
+// col[(l * kRevRes + e) * stride] (on the card a thread's own column of a
+// shared-memory block). Keeping Phi saves the reverse an erf per element.
+// Layer 4's stay in registers, since its reverse follows at once.
+constexpr int kRevRes = 2 * kHid + 1;
+constexpr int kRevResLayers = 3;
+
+struct RevStore {
+  float* col;
+  int stride;
+  VSRD_HD float& y(int l, int i) const { return col[(l * kRevRes + i) * stride]; }
+  VSRD_HD float& istd(int l) const { return col[(l * kRevRes + kHid) * stride]; }
+  VSRD_HD float& cdf(int l, int i) const { return col[(l * kRevRes + kHid + 1 + i) * stride]; }
+};
+
+// The sweep's per-instance "misc" block of kRevMisc floats: the biases of
+// layers 0-3, then layer 4's 16 weights and its bias. Entry e lies at
+// misc_index(e) in the flattened weights.
+constexpr int kRevMisc = 5 * kHid + 1;
+
+VSRD_HD int misc_index(int e) {
+  if (e < 4 * kHid) {
+    const int l = e / kHid, in = l == 0 ? kEnc : kHid;
+    return layer_offset(l) + (e % kHid) * (in + 1) + in;
+  }
+  return layer_offset(4) + (e - 4 * kHid);
+}
+
+// One instance's distance d and grad_x d (world frame) at the point x with
+// the residual field: the value forward, then the reverse sweep seeded with
+// 1. misc: the instance's kRevMisc block. The layer products of layers 0-3
+// go through prod, which holds their accumulator C (16 rows) and reads
+// their operand B from 16 staging rows; prod.at(r) is this point's entry
+// of row r:
+//   begin(bias)   C = the bias rows, or 0 for nullptr
+//   forward(l, m) C += W_l B; for l = 0, W_0's 16 columns of coordinate m
+//   reverse(l)    C += W_l^T B, l = 1..3
+//   hold()        keep B (layer 0's hbar) for reverse0
+//   reverse0(m)   C += the 16 rows of W_0^T of coordinate m times the kept B
+//   store()       the staging rows = C
+//   sync()        orders a point's writes of the rows before the product's
+//                 reads and back (on the card a warp's points share them)
+// Every call makes the same sequence of product calls, as the card's
+// warp-wide mma needs.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <class Prod>
+VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
+                           const float* half, const float* misc, float inv_scale, Prod& prod,
+                           RevStore res, float g[3]) {
+  const BoxGrad box(x, loc, rot, half);
+  const float sym[3] = {fabsf(box.l[0]) * inv_scale, box.l[1] * inv_scale, box.l[2] * inv_scale};
+
+  // layer 0, one coordinate's 16 encoding channels (two k-steps) at a time
+  float e[2 * kFreq];
+  prod.begin(misc);
+  VSRD_UNROLL
+  for (int m = 0; m < 3; ++m) {
+    enc_dim<2>(sym[m], e);
+    for (int j = 0; j < 2 * kFreq; ++j) prod.at(j) = e[j];
+    prod.sync();
+    prod.forward(0, m);
+    prod.sync();
+  }
+  prod.store();
+  prod.sync();
+
+  // forward, layers 1-4: LayerNorm + GELU per point, then the product
+  float a[kHid], y4[kHid], cdf4[kHid], istd4 = 0.f, raw = misc[4 * kHid + kHid];
+  VSRD_UNROLL
+  for (int l = 1; l <= 4; ++l) {
+    float h[kHid];
+    for (int i = 0; i < kHid; ++i) h[i] = prod.at(i);
+    if (l < 4) {
+      float y[kHid], cdf[kHid];
+      res.istd(l - 1) = ln_gelu(h, y, a, cdf);
+      for (int i = 0; i < kHid; ++i) {
+        res.y(l - 1, i) = y[i];
+        res.cdf(l - 1, i) = cdf[i];
+      }
+      for (int i = 0; i < kHid; ++i) prod.at(i) = a[i];
+      prod.sync();
+      prod.begin(misc + l * kHid);
+      prod.forward(l, 0);
+      prod.sync();
+      prod.store();
+      prod.sync();
+    } else {
+      istd4 = ln_gelu(h, y4, a, cdf4);
+    }
+  }
+  for (int i = 0; i < kHid; ++i) raw += misc[4 * kHid + i] * a[i];
+  const float sig = sigmoidf(raw - 1.f);
+  const float dsig = sig * (1.f - sig);
+
+  // reverse, layers 4..1: first-order LayerNorm + GELU per point, then W^T
+  float abar[kHid], hbar[kHid];
+  for (int i = 0; i < kHid; ++i) abar[i] = misc[4 * kHid + i] * dsig;
+  ln_gelu_rev(y4, istd4, cdf4, abar, hbar);
+  VSRD_UNROLL
+  for (int l = 3; l >= 1; --l) {
+    for (int i = 0; i < kHid; ++i) prod.at(i) = hbar[i];
+    prod.sync();
+    prod.begin(nullptr);
+    prod.reverse(l);
+    prod.sync();
+    prod.store();
+    prod.sync();
+    float y[kHid], cdf[kHid];
+    for (int i = 0; i < kHid; ++i) {
+      abar[i] = prod.at(i);
+      y[i] = res.y(l - 1, i);
+      cdf[i] = res.cdf(l - 1, i);
+    }
+    ln_gelu_rev(y, res.istd(l - 1), cdf, abar, hbar);
+  }
+
+  // layer 0's reverse, one coordinate (16 rows of W_0^T) at a time; the
+  // product keeps hbar, so that each coordinate's cotangents can go over
+  // the staging rows
+  for (int i = 0; i < kHid; ++i) prod.at(i) = hbar[i];
+  prod.sync();
+  prod.hold();
+  float gl[3] = {box.gl[0], box.gl[1], box.gl[2]};
+  VSRD_UNROLL
+  for (int m = 0; m < 3; ++m) {
+    prod.begin(nullptr);
+    prod.reverse0(m);
+    prod.sync();  // every point has read the rows (B, or the last coordinate's cotangents)
+    prod.store();
+    prod.sync();
+    float ebar[2 * kFreq];
+    for (int j = 0; j < 2 * kFreq; ++j) ebar[j] = prod.at(j);
+    enc_dim<4>(sym[m], e);
+    gl[m] += enc_rev(e, ebar) * (m == 0 ? box.s[0] : 1.f) * inv_scale;
+  }
+  local_to_world(rot, gl, g);
+  return box.d + sig;
+}
 
 // Softmin-union cotangents at one point (stage A of the backward).
 // Given each instance's d, its derivative td along the point's direction,

@@ -58,11 +58,14 @@
 // 9,312 f32 FMAs outside the tensor cores (the tangent forward of stage 1,
 // 3,104; the recomputed forward, 3,104; the reverse matvecs, 3,104) and
 // 3,169 multiply-adds of dW on the tensor cores, three products each in
-// 3xTF32. At 67 TFLOP/s f32 and 495 / 3 TFLOP/s for 3xTF32 those take
-// 0.278 and 0.115 ns per point-instance, so the f32 part bounds it: 3.1 ms
-// for 8 frames x 199,000 points x 56 active instances. Its bytes
-// (positions, directions and cotangents, 28 + 4 N floats' worth per point
-// and frame) take 0.03 ms there. Box-only is bound by those bytes.
+// 3xTF32. At 67 TFLOP/s f32 (2 FLOP an FMA) those take 0.278 ns per
+// point-instance; the dW sums, at 2 FLOP a multiply-add over 495 / 3
+// TFLOP/s, 0.038 ns. Since every one of those products could run on the
+// tensor cores, the function's least time counts all 12,481 multiply-adds
+// at the 3xTF32 rate and the rest (box, encoding, LayerNorm, GELU, union)
+// at the f32 rate (chip_smoke.py::kernel_bound). Its bytes (positions,
+// directions and cotangents, 28 + 4 N floats' worth per point and frame)
+// take 0.03 ms at F=8, P=199,000. Box-only is bound by those bytes.
 //
 // What the design does about what held the PR-2 kernel back (a fixed pool
 // of 64-thread CTAs, each walking every instance of its frame):
@@ -85,6 +88,7 @@
 #include <cuda_runtime.h>
 
 #include "field_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace vsrd {
 
@@ -114,20 +118,6 @@ constexpr int kRegion = cmax(cmax(cmax(stage_end(0), stage_end(1)),
                                   cmax(stage_end(2), stage_end(3))),
                              cmax(stage_end(4), 4 * kRes * kChunk));
 
-// x = big + small, each a TF32 value (cvt.rna leaves the low 13 bits zero)
-__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(big)));
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4], const unsigned b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // where weight e of the hypernetwork's packed output lies in the padded copy
 __device__ __forceinline__ int padded_index(int e) {
   constexpr int rows0 = kHid * (kEnc + 1), block = kHid * (kHid + 1);
@@ -136,23 +126,6 @@ __device__ __forceinline__ int padded_index(int e) {
   const int l = 1 + e / block;
   e -= (l - 1) * block;
   return Padded::at(l, e / (kHid + 1), e % (kHid + 1));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
-}
-
-// the three products of a 3xTF32 step: c += a_small b_big + a_big b_small +
-// a_big b_big, B's fragment read at column k0 of the staged row b
-__device__ __forceinline__ void mma3(float c[4], const unsigned ab[4], const unsigned as[4],
-                                     const float* b, int k0) {
-  unsigned bb[2], bs[2];
-  split_tf32(b[k0], bb[0], bs[0]);
-  split_tf32(b[k0 + 4], bb[1], bs[1]);
-  mma_tf32(c, as, bb);
-  mma_tf32(c, ab, bs);
-  mma_tf32(c, ab, bb);
 }
 
 // Sums each layer's weight gradient over the CTA's points on the tensor

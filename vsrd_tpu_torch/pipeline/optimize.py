@@ -50,9 +50,12 @@ class OptimizationConfig:
       and configure the XLA field path. The port has no such path; its
       field always goes through the kernels in f32 (their plain twins on
       CPU tensors), as the JAX package's kernel path does.
-    * ``pallas_rev_grad``: K1 computes grad_x u with three forward
-      tangents, the JAX kernel's ``pallas_rev_grad=False`` form; the
-      reverse-sweep form is still to port.
+    * ``pallas_rev_grad``: K1 always computes grad_x u by the JAX
+      kernel's default ``rev_grad`` form, one reverse sweep per instance.
+      The JAX package's other form, three forward tangents, serves its
+      strict mode, where the MXU's default precision is not f32; K1's
+      tensor-core products run in 3xTF32, f32-accurate at any
+      ``kernel_matmul_precision``, so the port has one form.
     * ``pallas_tile``, ``pallas_bwd_tile``, ``pallas_box_tile``: the CUDA
       kernels choose their own launch shapes.
     """

@@ -4,7 +4,9 @@ wrappers, launch counters and the autograd binding.
 Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
 
 * K1 ``field_forward``: u [P], w [P, N] and grad_x u [P, 3] of the union
-  SDF (``csrc/fused_forward.cu``; TPU ``_fwd_kernel``);
+  SDF (``csrc/fused_forward.cu``; TPU ``_fwd_kernel`` with ``rev_grad``),
+  grad_x u from one reverse sweep per instance with the layer products on
+  the tensor cores in 3xTF32;
 * K2 ``field_backward``: the cotangents of K1's inputs from those of its
   outputs (``csrc/fused_backward.cu``; TPU ``_bwd_kernel_manual``). One
   call launches three CUDA kernels: the union's cotangents per point, the
@@ -77,9 +79,9 @@ def build_dir() -> Path:
 
 
 def build_library() -> ctypes.CDLL:
-    """Compile ``csrc/*.cu`` for sm_90a (once per source content) and load
-    the library. Records the build time and ptxas's register and spill
-    report in ``build_info``.
+    """Compile ``csrc/*.cu`` for sm_90a (once per source content: one nvcc
+    per source, in parallel, then a link) and load the library. Records the
+    build time and ptxas's register and spill report in ``build_info``.
 
     nvcc writes to a name private to this process, which is then renamed
     onto the library's name, so a process that builds at the same time
@@ -98,20 +100,32 @@ def build_library() -> ctypes.CDLL:
     log_path = lib_path.with_suffix(".ptxas.txt")
     start = time.perf_counter()
     if not lib_path.exists():
+        # one nvcc per source, all started together, then one link
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objects = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+        procs = [subprocess.Popen(
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)]
+        logs = [proc.communicate()[0] for proc in procs]
         tmp_lib = lib_path.with_suffix(f".{os.getpid()}.tmp")
         tmp_log = log_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp_lib), *map(str, sources),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp_lib.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        tmp_log.write_text(proc.stdout + proc.stderr)
+        try:
+            failed = [(src.name, proc.returncode, log)
+                      for src, proc, log in zip(sources, procs, logs) if proc.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"{name} ({code}):\n{log}" for name, code, log in failed))
+            link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp_lib), *map(str, objects)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                                   f"{link.stdout}{link.stderr}")
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
+        tmp_log.write_text("".join(logs))
         os.replace(tmp_log, log_path)
         os.replace(tmp_lib, lib_path)
     build_info.update(
@@ -125,8 +139,9 @@ def build_library() -> ctypes.CDLL:
     lib.vsrd_dir_forward.argtypes = [i32] * 4 + [ptr] * 8 + [f32] + [ptr] * 4
     lib.vsrd_fused_backward.argtypes = [i32] * 4 + [ptr] * 10 + [f32, i32] + [ptr] * 5
     lib.vsrd_fused_backward_tiles.argtypes = [i32]
-    for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward,
-               lib.vsrd_fused_backward, lib.vsrd_fused_backward_tiles):
+    lib.vsrd_rev_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
+    for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward, lib.vsrd_fused_backward,
+               lib.vsrd_fused_backward_tiles, lib.vsrd_rev_forward_info):
         fn.restype = i32
     _library = lib
     return lib
@@ -264,6 +279,16 @@ def field_dir_forward(positions, directions, locations, rotations, half_dims, va
         _ptr(u_dot), _stream()), "K3/K4b dir_forward")
     _count(field_dir_forward, frames)
     return u, wts, u_dot
+
+
+def rev_forward_info(num_instances: int, rdf: bool = True) -> tuple[int, int, int]:
+    """The K1/K4a kernel's threads per CTA, dynamic shared memory in bytes
+    and CTAs per SM on the current card, for ``num_instances``."""
+    lib = build_library()
+    threads, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _check(lib.vsrd_rev_forward_info(num_instances, int(rdf), ctypes.byref(threads),
+                                     ctypes.byref(smem), ctypes.byref(ctas)), "rev_forward_info")
+    return threads.value, smem.value, ctas.value
 
 
 def reset_launch_counts():

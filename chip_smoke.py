@@ -8,7 +8,7 @@ Phases (any failure exits non-zero):
 1. environment: a CUDA card, its name and power limit, the toolchain;
 2. build: compile the field kernels (csrc/*.cu) with nvcc for sm_90a, one
    nvcc per source in parallel; ptxas's registers and spills of every
-   kernel, and K1's shared memory and CTAs per SM;
+   kernel, and K1's and K3's CTA size, shared memory and CTAs per SM;
 3. kernels: K1/K2 at P=199,000 points and K3 at P=99,000, N=8 instances
    (6 valid), box-only and with the residual field, each against its plain
    PyTorch twin on the same inputs on the card (max error relative to the
@@ -21,7 +21,10 @@ Phases (any failure exits non-zero):
    no valid instance, the others 6 or 8), each frame against the twin the
    same way, and a check that K4c keeps frames apart: zero cotangents in
    one frame give exactly zero there and leave the other frames' results
-   bit for bit as they were;
+   bit for bit as they were. With the residual field, K3 (K4b) is also
+   timed in turns with its other possible form, K1's kernel on the same
+   inputs (rev_forward_kernel, whose grad_x u dotted with the direction
+   in its epilogue is u_dot), 3 times each on CUDA events;
 4. frames: the 17-view 376x1408 synthetic frames of seeds 0-7 with 8
    instances, built on host threads;
 5. slice: ``optimize_frame`` on frame 0 with 1000 rays and 100+100 samples
@@ -32,22 +35,30 @@ Phases (any failure exits non-zero):
 6. batched slice: ``optimize_frames_batched`` on the 8 frames stacked, the
    same 40 steps; the same checks in every frame, with K4a, K4c and K4b
    launched exactly once per step for all 8 frames; then the median
-   ms/step of each phase at F=8 beside F=1, and ms per frame-step.
+   ms/step of each phase at F=8 beside F=1, and ms per frame-step;
+7. residual coarse pass: frame 0 and the 8 stacked frames again with
+   ``kernel_box_coarse=False`` for 20 steps (10 box-only + 10 with the
+   residual field), so that the coarse pass runs K3 (K4b) with the field:
+   finite scalars, one launch of each kernel per step, and 10 of K3's
+   (K4b's) with the residual field.
 
-The second-to-last line is a JSON object with one entry per kernel of the
-two paths: its launches in its path, its largest absolute error against
-the twin and that error relative to the twin's scale (the pullback to the
-field weights sums ~200k points, so its absolute error is large where its
+The second-to-last line is a JSON object with one entry per kernel and
+mode of the paths: its launches in its path (K3 and K4b with the residual
+field: with the field in phase 7), its largest absolute error against the
+twin and that error relative to the twin's scale (the pullback to the field
+weights sums ~200k points, so its absolute error is large where its
 relative one is not), its time (``ms``, host clock; ``event_ms``, CUDA
-events) beside the twin's, its bound and what sets it, and
-``library_ms`` null: no single PyTorch call computes these functions (the
-softmin union of per-instance box SDFs plus a per-instance MLP with
-LayerNorm and GELU, with tangents or its reverse sweep). The last line is
-``{"ok": true, "device": {...}}``.
+events) beside the twin's, its bound and what sets it, ``library_ms``
+null: no single PyTorch call computes these functions (the softmin union of
+per-instance box SDFs plus a per-instance MLP with LayerNorm and GELU, with
+tangents or its reverse sweep), and for K3/K4b with the residual field
+``epilogue_form_event_ms``, the other form's time in turns. The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -179,7 +190,8 @@ def median_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def field_inputs(num_points: int, num_instances: int = 8, num_valid: int = 6, seed: int = 0):
+def field_inputs(num_points: int, num_instances: int = 8, num_valid: int = 6, seed: int = 0,
+                 device: str = "cuda"):
     """Field inputs shaped like the main path's: points along rays from a
     camera at the origin over 0-100 m, boxes 5-40 m ahead, field weights
     from a random hypernetwork-sized layer."""
@@ -203,10 +215,10 @@ def field_inputs(num_points: int, num_instances: int = 8, num_valid: int = 6, se
         du=rng.normal(size=num_points), dw=rng.normal(size=(num_points, n)),
         dg=rng.normal(size=(num_points, 3)),
     )
-    t = lambda x: torch.tensor(np.asarray(x, np.float32), device="cuda")  # noqa: E731
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
     return dict(
         pos=t(pos), dirs=t(dirs), loc=t(loc), rot=t(rot), half=t(half), valid=t(valid),
-        weights=t(weights), tau=torch.tensor(0.5, device="cuda"),
+        weights=t(weights), tau=torch.tensor(0.5, device=device),
         **{k: t(v) for k, v in cot.items()},
     )
 
@@ -332,6 +344,15 @@ def kernel_phase(rdf: bool, batched: bool, report: dict, errors: dict):
         max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[2]}_{mode}_")),
         ms=median_ms(dirf), event_ms=event_ms(dirf),
         plain_ms=median_ms(lambda: twin_dir(*dir_args)), bound=kernel_bound("K3", rdf, x))
+    if rdf:
+        # the other form: K1's kernel on the same inputs, in turns with K3
+        epilogue = lambda: fk.field_forward(  # noqa: E731
+            x["pos"], x["loc"], x["rot"], x["half"], x["valid"], weights, x["tau"])
+        turns = {"kernel": [], "epilogue": []}
+        for _ in range(3):
+            turns["kernel"].append(event_ms(dirf))
+            turns["epilogue"].append(event_ms(epilogue))
+        report[f"{names[2]}_{mode}"]["forms"] = {k: statistics.median(v) for k, v in turns.items()}
 
 
 def isolation_check(fk, fwd_args, x):
@@ -357,8 +378,11 @@ def isolation_check(fk, fwd_args, x):
 def run_path(label: str, frame, cfg, batched: bool):
     """Drive one path (``optimize_frame`` on one frame, or
     ``optimize_frames_batched`` on stacked frames) for cfg.num_steps steps
-    with the launch counts set to 0 just before; check its scalars and
-    that each field kernel ran exactly once per step."""
+    with the launch counts set to 0 just before; check its scalars, that
+    each field kernel ran exactly once per step, and that K1 and K2 ran
+    with the residual field after warmup, K3 too with
+    ``kernel_box_coarse=False``. Returns the params, the launches and the
+    launches with the residual field."""
     import numpy as np
 
     from vsrd_tpu_torch.pipeline import optimize as opt
@@ -374,8 +398,10 @@ def run_path(label: str, frame, cfg, batched: bool):
     counts = {name: (fn.batched_launches if batched else fn.launches - fn.batched_launches)
               for name, fn in zip(kernels, launchers)}
     total = {name: fn.launches for name, fn in zip(kernels, launchers)}
+    rdf = {name: fn.rdf_launches for name, fn in zip(kernels, launchers)}
     steps, last, warm = cfg.num_steps, cfg.num_steps - 1, cfg.warmup_steps
-    print(f"[{label}] {steps} steps: {elapsed:.2f} s; launches {counts}", flush=True)
+    print(f"[{label}] {steps} steps: {elapsed:.2f} s; launches {counts}, with the residual "
+          f"field {rdf}", flush=True)
     loss = np.atleast_2d(scalars["loss"].T)
     iou = np.atleast_2d(scalars["iou_3d"].T)
     for f in range(loss.shape[0]):
@@ -389,11 +415,16 @@ def run_path(label: str, frame, cfg, batched: bool):
         matched = np.atleast_1d(scalars["num_matched"][step])
         if not np.all(matched == 8):
             fail(f"{label}: metrics at step {step + 1} matched {matched.tolist()} of 8 instances")
+    expected_rdf = dict(zip(kernels, (steps - warm, steps - warm,
+                                      0 if cfg.kernel_box_coarse else steps - warm)))
     for name in kernels:
         if counts[name] != steps or total[name] != steps:
             fail(f"{label}: {name} launched {counts[name]} times ({total[name]} in all) in "
                  f"{steps} steps (expected exactly {steps})")
-    return params, counts
+        if rdf[name] != expected_rdf[name]:
+            fail(f"{label}: {name} launched {rdf[name]} times with the residual field "
+                 f"(expected {expected_rdf[name]})")
+    return params, counts, rdf
 
 
 def step_times(frame, params, cfg) -> dict:
@@ -440,10 +471,12 @@ def main():
     for line in fk.build_info["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
-    for rdf in (True, False):
-        threads, smem, ctas = fk.rev_forward_info(8, rdf)
-        print(f"[build] rev_forward_kernel<{str(rdf).lower()}, {threads}> at N=8: {smem} bytes "
-              f"of dynamic shared memory, {ctas} CTAs of {threads} threads per SM", flush=True)
+    for name, info in (("rev_forward_kernel", fk.rev_forward_info),
+                       ("tangent_forward_kernel", fk.dir_forward_info)):
+        for rdf in (True, False):
+            threads, smem, ctas = info(8, rdf)
+            print(f"[build] {name}<{str(rdf).lower()}, {threads}> at N=8: {smem} bytes of "
+                  f"dynamic shared memory, {ctas} CTAs of {threads} threads per SM", flush=True)
 
     report, errors = {}, {}
     for batched in (False, True):
@@ -456,6 +489,12 @@ def main():
         print(f"[kernels] {name} (F={entry['frames']}): {entry['ms']:.3f} ms host, "
               f"{entry['event_ms']:.3f} ms events (plain {entry['plain_ms']:.3f} ms; bound "
               f"{entry['bound'][0]:.3f} ms by {entry['bound'][1]}) on {card}", flush=True)
+        if "forms" in entry:
+            forms = entry["forms"]
+            print(f"[kernels] {name} forms, events in turns (median of 3): "
+                  f"tangent_forward_kernel {forms['kernel']:.4f} ms, the epilogue form "
+                  f"(rev_forward_kernel) {forms['epilogue']:.4f} ms: "
+                  f"{1 - forms['kernel'] / forms['epilogue']:.1%} less time", flush=True)
     bad = {k: v for k, v in errors.items() if not v <= TOLERANCE}
     if bad:
         fail(f"kernels disagree with their twins beyond {TOLERANCE}: {bad}")
@@ -470,19 +509,29 @@ def main():
     cfg = opt.OptimizationConfig(num_steps=40, warmup_steps=20, num_rays=1000, num_samples=100,
                                  checkpoint_interval=20, metric_interval=20)
 
-    params, launches = run_path("slice", frames[0], cfg, batched=False)
+    # the coarse pass with the residual field (phase 7)
+    coarse_cfg = dataclasses.replace(cfg, num_steps=20, warmup_steps=10, checkpoint_interval=10,
+                                     metric_interval=10, kernel_box_coarse=False)
+
+    params, launches, _ = run_path("slice", frames[0], cfg, batched=False)
     single_ms = step_times(frames[0], params, cfg)
     del params
+    _, _, coarse_launches = run_path("slice, residual coarse pass", frames[0], coarse_cfg,
+                                     batched=False)
     batch = sharded.stack_frames(frames)
     del frames
-    params, batched_launches = run_path("batched slice", batch, cfg, batched=True)
+    params, batched_launches, _ = run_path("batched slice", batch, cfg, batched=True)
     launches.update(batched_launches)
     batch_ms = step_times(batch, params, cfg)
     for phase in ("warmup", "rdf"):
         print(f"[step] {phase}: median ms/step F=1 {single_ms[phase]:.2f}, F={FRAMES} "
               f"{batch_ms[phase]:.2f} ({batch_ms[phase] / FRAMES:.2f} per frame-step) "
               f"on {card}", flush=True)
-    del batch, params
+    del params
+    _, _, batched_coarse = run_path("batched slice, residual coarse pass", batch, coarse_cfg,
+                                    batched=True)
+    coarse_launches.update(batched_coarse)
+    del batch
 
     sources = {
         "K1": ("fused_forward.cu", f"{PALLAS}:111"),
@@ -495,25 +544,29 @@ def main():
     kernels = []
     for name, (source, replaces) in sources.items():
         # the main path runs the fine pass and its backward in both modes
-        # and the coarse pass box-only
-        mode = "box" if name in ("K3", "K4b") else "rdf"
-        entry = report[f"{name}_{mode}"]
-        kernels.append({
-            "name": f"{name} ({mode})",
-            "route": "cuda",
-            "source": f"vsrd_tpu_torch/csrc/{source}",
-            "replaces": replaces,
-            "frames": entry["frames"],
-            "launches": launches[name],
-            "max_abs_err": entry["max_abs_err"],
-            "max_rel_err": entry["max_rel_err"],
-            "ms": entry["ms"],
-            "event_ms": entry["event_ms"],
-            "plain_ms": entry["plain_ms"],
-            "bound_ms": entry["bound"][0],
-            "bound_by": entry["bound"][1],
-            "library_ms": None,
-        })
+        # and the coarse pass box-only; kernel_box_coarse=False runs the
+        # coarse pass with the residual field (its launches from phase 7)
+        coarse = name in ("K3", "K4b")
+        for mode in ("box", "rdf") if coarse else ("rdf",):
+            entry = report[f"{name}_{mode}"]
+            kernels.append({
+                "name": f"{name} ({mode})",
+                "route": "cuda",
+                "source": f"vsrd_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "frames": entry["frames"],
+                "launches": coarse_launches[name] if coarse and mode == "rdf" else launches[name],
+                "max_abs_err": entry["max_abs_err"],
+                "max_rel_err": entry["max_rel_err"],
+                "ms": entry["ms"],
+                "event_ms": entry["event_ms"],
+                "plain_ms": entry["plain_ms"],
+                "bound_ms": entry["bound"][0],
+                "bound_by": entry["bound"][1],
+                "library_ms": None,
+                **({"epilogue_form_event_ms": entry["forms"]["epilogue"]} if "forms" in entry
+                   else {}),
+            })
     if not all(math.isfinite(k["ms"]) and math.isfinite(k["event_ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"[time] whole run: {time.perf_counter() - script_start:.1f} s", flush=True)

@@ -10,11 +10,12 @@ with a card and no JAX):
   compiler and driven point by point by a small harness that mirrors the
   kernels' loops, with the card's layouts (padded weight rows, strided
   residual columns) and, where a kernel takes its products from an object
-  (K1's sweep, K2's weight-gradient sink), scalar loops in its place. What
-  this cannot reach (shared-memory staging, the tensor-core layer products
-  and weight-gradient sums, the CTA partial sums and their reduction) is
-  covered by the card tests, and the choice of 3xTF32 for those products
-  by numpy emulations of TF32 rounding;
+  (K1's sweep, K3's one-tangent forward, K2's weight-gradient sink), scalar
+  loops in its place; K3's math also at the main path's magnitudes (100 m)
+  against the float64 twin. What this cannot reach (shared-memory staging,
+  the tensor-core layer products and weight-gradient sums, the CTA partial
+  sums and their reduction) is covered by the card tests, and the choice of
+  3xTF32 for those products by numpy emulations of TF32 rounding;
 * on the card (marker ``gpu``, skipped without one): the CUDA kernels
   against the twins, including N=12 (two instance groups of shared
   memory), an all-invalid frame, and K2's run-to-run repeatability; the
@@ -23,15 +24,17 @@ with a card and no JAX):
   isolation, F=1 through the batched entry points against the
   single-frame launch, and K4c on a grid with ragged edges (F=3, N=5, P
   not a multiple of the backward's chunks); K1/K4a against the float64
-  twin (N = 4, 5, 8, 10 and 12, a ragged P, the all-invalid frame), their
-  repeatability, F=1 through the batched entry point and frame isolation
-  at F=3.
+  twin (N = 1, 4, 5, 8, 10 and 12, a ragged P, the all-invalid frame),
+  their repeatability, F=1 through the batched entry point and frame
+  isolation at F=3; the same for K3/K4b, with N = 2 and with N = 64 for
+  its 128-thread CTAs with the residual field.
 
 Tolerances, with their reasons:
 * host math: u and w 2e-6 absolute (+ 2e-7 relative): the same f32
   arithmetic in another order; grad_x u and u_dot 2e-5 relative to scale:
   the tangents go through four LayerNorm Jacobians; pullbacks 1e-4
-  relative to scale (bench.py's err()): sums over all points;
+  relative to scale (bench.py's err()): sums over all points; at 100 m
+  the f32 floor (see test_host_dir_forward_math_matches_float64_twin_at_100m);
 * card: 2e-4 relative to scale, bench.py's bar for compiled kernels
   (fast-math intrinsics, fused multiply-adds and another summation order).
 
@@ -39,8 +42,10 @@ Run the card half with ``python -m pytest tests/test_torch_kernels.py -m gpu``.
 """
 
 import ctypes
+import importlib.util
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -75,20 +80,29 @@ struct HostSink {
   }
 };
 
-// instance_rev's layer products as scalar loops over one point's staging
-// rows; W: the instance's 1617 flattened weights
+// instance_rev's and instance_dir's layer products as scalar loops over one
+// point's staging rows (rows: the value block, trows: the tangent block,
+// which instance_rev leaves at 0); W: the instance's 1617 flattened weights
 struct HostProduct {
   const float* W;
-  float rows[kHid], c[kHid], held[kHid];
+  float rows[kHid], c[kHid], held[kHid], trows[kHid] = {}, tc[kHid] = {};
   float& at(int r) { return rows[r]; }
+  float& tan_at(int r) { return trows[r]; }
   void sync() {}
   void begin(const float* bias) {
-    for (int o = 0; o < kHid; ++o) c[o] = bias ? bias[o] : 0.f;
+    for (int o = 0; o < kHid; ++o) {
+      c[o] = bias ? bias[o] : 0.f;
+      tc[o] = 0.f;
+    }
   }
   void forward(int l, int m) {
     const int row = (l == 0 ? kEnc : kHid) + 1, k0 = l == 0 ? m * kHid : 0;
     for (int o = 0; o < kHid; ++o)
-      for (int k = 0; k < kHid; ++k) c[o] += W[layer_offset(l) + o * row + k0 + k] * rows[k];
+      for (int k = 0; k < kHid; ++k) {
+        const float wv = W[layer_offset(l) + o * row + k0 + k];
+        c[o] += wv * rows[k];
+        tc[o] += wv * trows[k];
+      }
   }
   void reverse(int l) {
     for (int i = 0; i < kHid; ++i)
@@ -102,9 +116,20 @@ struct HostProduct {
       for (int o = 0; o < kHid; ++o) c[j] += W[o * (kEnc + 1) + m * kHid + j] * held[o];
   }
   void store() {
-    for (int o = 0; o < kHid; ++o) rows[o] = c[o];
+    for (int o = 0; o < kHid; ++o) {
+      rows[o] = c[o];
+      trows[o] = tc[o];
+    }
   }
 };
+
+// the misc blocks (instance_rev's and instance_dir's) of N instances
+std::vector<float> misc_blocks(int N, const float* W) {
+  std::vector<float> misc(W ? N * kRevMisc : 0);
+  for (int i = 0; W && i < N; ++i)
+    for (int e = 0; e < kRevMisc; ++e) misc[i * kRevMisc + e] = W[i * kWeights + misc_index(e)];
+  return misc;
+}
 
 bool any_valid_of(int n, const float* valid) {
   bool any = false;
@@ -119,33 +144,58 @@ void to_local(const float* v, const float* R, float t[3]) {
 
 }  // namespace
 
-// K3's per-point loop: one tangent, along dirs
+// K3's per-point loop: with the residual field instance_dir, the forward the
+// kernel runs, with its layer products as scalar loops; box-only box_dir.
+// Then the kernel's union (dir_union) over the point's row of logits,
+// distances and tangents.
 extern "C" void host_dir_forward(int P, int N, const float* pos, const float* dirs,
                                  const float* loc, const float* rot, const float* half,
                                  const float* valid, const float* W, float tau, float scale,
                                  float* u, float* w, float* u_dot) {
   const bool any_valid = any_valid_of(N, valid);
+  const std::vector<float> misc = misc_blocks(N, W);
+  std::vector<float> d(N), td(N);
+  for (int p = 0; p < P; ++p) {
+    for (int i = 0; i < N; ++i) {
+      if (!instance_active(valid[i], any_valid)) continue;
+      const float* x = pos + 3 * p;
+      const float* v = dirs + 3 * p;
+      if (W) {
+        HostProduct prod{W + i * kWeights};
+        d[i] = instance_dir(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                            misc.data() + i * kRevMisc, Scaler(scale), prod, td[i]);
+      } else {
+        float tl[3];
+        d[i] = box_dir(BoxGrad(x, loc + 3 * i, rot + 9 * i, half + 3 * i), v, rot + 9 * i, tl,
+                       td[i]);
+      }
+      w[p * N + i] = union_logit(d[i], valid[i], tau);
+    }
+    u[p] = dir_union(N, valid, any_valid, w + p * N, d.data(), td.data(), tau, u_dot[p]);
+  }
+}
+
+// The same function in the form K3 took before its tensor-core redesign:
+// the scalar one-tangent instance_forward<1> and the online union, for the
+// comparison of the two forms' rounding (u_dot only)
+extern "C" void host_dir_forward_scalar(int P, int N, const float* pos, const float* dirs,
+                                        const float* loc, const float* rot, const float* half,
+                                        const float* valid, const float* W, float tau,
+                                        float scale, float* u_dot) {
+  const bool any_valid = any_valid_of(N, valid);
   for (int p = 0; p < P; ++p) {
     OnlineUnion<1> acc;
     for (int i = 0; i < N; ++i) {
-      if (!instance_active(valid[i], any_valid)) {
-        w[p * N + i] = 0.f;
-        continue;
-      }
-      const float* R = rot + 9 * i;
+      if (!instance_active(valid[i], any_valid)) continue;
       float tl[1][3], td[1];
-      to_local(dirs + 3 * p, R, tl[0]);
-      const float d = instance_forward<1>(pos + 3 * p, loc + 3 * i, R, half + 3 * i,
+      to_local(dirs + 3 * p, rot + 9 * i, tl[0]);
+      const float d = instance_forward<1>(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i,
                                           W ? W + i * kWeights : nullptr, 1.f / scale, tl, td);
-      const float l = union_logit(d, valid[i], tau);
-      w[p * N + i] = l;
-      acc.add(l, d, td);
+      acc.add(union_logit(d, valid[i], tau), d, td);
     }
     float du[1];
-    u[p] = acc.finish(tau, du);
+    acc.finish(tau, du);
     u_dot[p] = du[0];
-    for (int i = 0; i < N; ++i)
-      if (instance_active(valid[i], any_valid)) w[p * N + i] = acc.weight(w[p * N + i]);
   }
 }
 
@@ -157,9 +207,7 @@ extern "C" void host_forward_rev(int P, int N, const float* pos, const float* lo
                                  const float* W, float tau, float scale, float* u, float* w,
                                  float* grad) {
   const bool any_valid = any_valid_of(N, valid);
-  std::vector<float> column(kRevResLayers * kRevRes * 2), misc(N * kRevMisc);
-  for (int i = 0; W && i < N; ++i)
-    for (int e = 0; e < kRevMisc; ++e) misc[i * kRevMisc + e] = W[i * kWeights + misc_index(e)];
+  std::vector<float> column(kRevResLayers * kRevRes * 2), misc = misc_blocks(N, W);
   for (int p = 0; p < P; ++p) {
     OnlineUnion<3> acc;
     for (int i = 0; i < N; ++i) {
@@ -297,6 +345,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.host_dir_forward.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32] + [ptr] * 3
+    lib.host_dir_forward_scalar.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32, ptr]
     lib.host_backward.argtypes = [i32, i32] + [ptr] * 9 + [f32, f32, ptr]
     lib.host_forward_rev.argtypes = [i32, i32] + [ptr] * 6 + [f32, f32] + [ptr] * 3
     return lib
@@ -610,28 +659,40 @@ def test_weight_gradient_sums_need_the_split_tf32_products():
     assert np.abs(three - exact).max() / scale <= 1e-6
 
 
+def _far_inputs(n=8, p=2000, seed=0, num_valid=0):
+    """Field inputs shaped like the main path's (``chip_smoke.field_inputs``):
+    points along rays from the origin out to 100 m, boxes 5-40 m ahead,
+    weights at the hypernetwork's output scale."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(p, 3)) * [0.3, 0.1, 1.0]
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    pos = dirs * rng.uniform(0.0, 100.0, size=(p, 1))
+    loc = np.stack([rng.uniform(-6, 6, n), rng.uniform(0.3, 0.8, n), rng.uniform(5, 40, n)], -1)
+    yaw = rng.uniform(-0.4, 0.4, n)
+    x = dict(
+        pos=pos, dirs=dirs, loc=loc,
+        rot=np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+                      for a in yaw]),
+        half=rng.uniform([0.75, 0.75, 1.5], [1.0, 1.0, 2.5], size=(n, 3)),
+        valid=(np.arange(n) < num_valid).astype(np.float64),
+        w=rng.normal(size=(n, fk.NUM_WEIGHTS)) * 0.3,
+    )
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in x.items()}
+
+
 def _rev_union_gradient(products, points=2048, n=8, seed=0):
     """u and grad_x u of the reverse form, in float64, with every layer
     product that the reverse-form kernel runs on the tensor cores (W_l a for
     layers 0-3, W_l^T hbar for layers 3..0) computed by ``products(A, B)``
     on float32 operands; layer 4 and all per-point work stay exact. Inputs
-    shaped like the main path's (``chip_smoke.field_inputs``): points along
-    rays out to 100 m, where the encoding's top frequency reaches 128 pi,
-    boxes 5-40 m ahead, weights at the hypernetwork's output scale, and no
-    valid instance, so the union is uniform and weighs each instance's
-    gradient by up to |1 + (u - d_i) / tau|."""
+    as ``_far_inputs``: points along rays out to 100 m, where the encoding's
+    top frequency reaches 128 pi, and no valid instance, so the union is
+    uniform and weighs each instance's gradient by up to
+    |1 + (u - d_i) / tau|."""
     from math import erf
 
-    rng = np.random.default_rng(seed)
-    dirs = rng.normal(size=(points, 3)) * [0.3, 0.1, 1.0]
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    pos = dirs * rng.uniform(0.0, 100.0, size=(points, 1))
-    loc = np.stack([rng.uniform(-6, 6, n), rng.uniform(0.3, 0.8, n), rng.uniform(5, 40, n)], -1)
-    yaw = rng.uniform(-0.4, 0.4, n)
-    rot = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-                    for a in yaw])
-    half = rng.uniform([0.75, 0.75, 1.5], [1.0, 1.0, 2.5], size=(n, 3))
-    weights = (rng.normal(size=(n, fk.NUM_WEIGHTS)) * 0.3).astype(np.float32).astype(np.float64)
+    x = {k: v.astype(np.float64) for k, v in _far_inputs(n, points, seed).items()}
+    pos, loc, rot, half, weights = x["pos"], x["loc"], x["rot"], x["half"], x["w"]
     cdf_of = np.vectorize(lambda v: 0.5 * (1.0 + erf(v / np.sqrt(2.0))))
     mm = lambda a, b: products(a.astype(np.float32), b.astype(np.float32))  # noqa: E731
     distances, gradients = [], []
@@ -707,6 +768,154 @@ def test_rev_forward_products_need_the_split_tf32_products():
     assert float(np.abs(u3 - u).max()) <= 2e-6
 
 
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("num_valid", [0, 6])
+def test_host_dir_forward_math_matches_float64_twin_at_100m(host_lib, use_rdf, num_valid):
+    """K3's per-point math (instance_dir with scalar products, box_dir,
+    dir_union) at the main path's magnitudes, against the twin in float64.
+    At 100 m the f32 local coordinates carry ~6e-6 m of rounding, a phase
+    error of ~2e-5 at the top frequency (128 pi / 100 m), and with no valid
+    instance the uniform union weighs each instance's tangent by up to
+    |1 + (u - d_i) / tau|: so u_dot is held to 1e-4 relative to scale, and
+    to within twice the float32 twin's own error (+ 1e-5). u to 1e-6
+    relative to scale; w to 2e-5 absolute, the f32 spacing of the logits
+    -d/tau (up to 200) that the weights inherit."""
+    x = _far_inputs(num_valid=num_valid)
+    u, w, ud = _host_dir_forward(host_lib, x, use_rdf)
+    u2, w2, ud2 = _twin64_dir(x, use_rdf)
+    twin32 = tff.scene_eval_dir(*(_t(x[k]) for k in ("pos", "dirs", "loc", "rot", "half",
+                                                     "valid")),
+                                _t(x["w"]) if use_rdf else None, torch.tensor(TAU))
+    assert _err(u, u2) <= 1e-6
+    np.testing.assert_allclose(w, w2, atol=2e-5, rtol=0)
+    assert _err(ud, ud2) <= min(1e-4, 2 * _err(twin32[2].numpy(), ud2) + 1e-5)
+
+
+def _smoke_frame_with_no_valid_instance():
+    """chip_smoke.py's K4b frame with no valid instance (frame 1 of its
+    kernel phase's coarse pass: 99,000 points out to 100 m, N=8), built by
+    chip_smoke.field_inputs on the CPU."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    x = smoke.field_inputs(99_000, num_valid=0, seed=1 + 100, device="cpu")
+    return {("w" if k == "weights" else k): v.numpy() for k, v in x.items()
+            if k in ("pos", "dirs", "loc", "rot", "half", "valid", "weights")}
+
+
+def test_host_dir_forward_holds_the_smoke_frame_with_no_valid_instance(host_lib):
+    """The frame where the card's K4b reads its largest u_dot error against
+    the float64 twin (chip_smoke.py, residual field), through the host build
+    of K3's math in both forms: instance_dir with scalar products (the
+    kernel's) and the scalar one-tangent instance_forward<1> with the online
+    union (K3's form before its tensor-core redesign). Their errors relative
+    to scale are printed (``pytest -s``). instance_dir, whose encoding
+    divides by the position scale (Scaler), stays within half the card's
+    2e-4 bar, leaving the other half to the tensor-core products; the other
+    form, which multiplies by the rounded 1 / scale, within the bar."""
+    x = _smoke_frame_with_no_valid_instance()
+    p, n = x["pos"].shape[0], x["loc"].shape[0]
+    chunks = [_twin64_dir({**x, "pos": x["pos"][s:s + 11_000], "dirs": x["dirs"][s:s + 11_000]},
+                          True)[2] for s in range(0, p, 11_000)]
+    ref = np.concatenate(chunks)
+    _, _, ud = _host_dir_forward(host_lib, x, True)
+    scalar = np.zeros(p, np.float32)
+    host_lib.host_dir_forward_scalar(p, n, *map(_ptr, (x["pos"], x["dirs"], x["loc"], x["rot"],
+                                                       x["half"], x["valid"], x["w"])),
+                                     TAU, SCALE, _ptr(scalar))
+    errs = {"instance_dir": _err(ud, ref), "instance_forward<1>": _err(scalar, ref)}
+    tails = {k: np.quantile(np.abs(a - ref), 0.999) / max(float(np.abs(ref).max()), 1.0)
+             for k, a in (("instance_dir", ud), ("instance_forward<1>", scalar))}
+    print("u_dot rel err against the float64 twin, chip_smoke.py's K4b frame 1 (max, 99.9th "
+          "percentile): " + ", ".join(f"{k} {errs[k]:.3e}, {tails[k]:.3e}" for k in errs))
+    assert errs["instance_dir"] <= 1e-4 and errs["instance_forward<1>"] <= 2e-4
+
+
+def _dir_union_derivative(products, points=2048, n=8, seed=0):
+    """u and u_dot = <dir, grad_x u> of the one-tangent forward, in float64,
+    with every layer product that the K3 kernel runs on the tensor cores
+    (W_l [a | ta] for layers 0-3, the value and its tangent as two column
+    blocks) computed by ``products(A, B)`` on float32 operands; layer 4 and
+    all per-point work stay exact. Inputs as ``_far_inputs``: points out to
+    100 m along their rays, no valid instance, so the union is uniform and
+    weighs each instance's tangent by up to |1 + (u - d_i) / tau|."""
+    from math import erf
+
+    x = {k: v.astype(np.float64) for k, v in _far_inputs(n, points, seed).items()}
+    pos, dirs = x["pos"], x["dirs"]
+    cdf_of = np.vectorize(lambda v: 0.5 * (1.0 + erf(v / np.sqrt(2.0))))
+    mm = lambda a, b: products(a.astype(np.float32), b.astype(np.float32))  # noqa: E731
+    distances, tangents = [], []
+    for i in range(n):
+        flat = x["w"][i]
+        mats = [flat[:16 * 49].reshape(16, 49)]
+        mats += [flat[16 * 49 + j * 272:16 * 49 + (j + 1) * 272].reshape(16, 17) for j in range(3)]
+        last = flat[16 * 49 + 3 * 272:]
+        rot = x["rot"][i]
+        local, tl = (pos - x["loc"][i]) @ rot, dirs @ rot
+        sign, q = np.sign(local), np.abs(local) - x["half"][i]
+        r = np.maximum(q, 0.0)
+        outside = np.sqrt((r ** 2).sum(-1) + 1e-6)
+        gate = (q.max(-1) < 0).astype(np.float64)
+        d = outside - np.maximum(-q.max(-1), 0.0)
+        grad_local = sign * (r / outside[:, None] + gate[:, None] * np.eye(3)[np.argmax(q, -1)])
+        td = (grad_local * tl).sum(-1)
+        sym = np.stack([np.abs(local[:, 0]), local[:, 1], local[:, 2]]) / SCALE   # [3, P]
+        tsym = np.stack([sign[:, 0] * tl[:, 0], tl[:, 1], tl[:, 2]]) / SCALE
+        freq = np.pi * 2.0 ** np.arange(8)
+        phase = sym[:, None, :] * freq[None, :, None]                              # [3, 8, P]
+        tphase = tsym[:, None, :] * freq[None, :, None]
+        enc = np.stack([np.cos(phase), np.sin(phase)], 2).reshape(48, points)
+        tenc = np.stack([-np.sin(phase) * tphase, np.cos(phase) * tphase], 2).reshape(48, points)
+        both = mm(mats[0][:, :48], np.concatenate([enc, tenc], 1))
+        h, th = both[:, :points] + mats[0][:, 48:], both[:, points:]
+        for layer in (*mats[1:], None):
+            centered = h - h.mean(0)
+            istd = 1.0 / np.sqrt((centered ** 2).mean(0) + 1e-5)
+            y, tc = centered * istd, th - th.mean(0)
+            ty = istd * (tc - y * (y * tc).mean(0))
+            cdf = cdf_of(y)
+            a, ta = y * cdf, (cdf + y * np.exp(-0.5 * y * y) / np.sqrt(2 * np.pi)) * ty
+            if layer is None:
+                break
+            both = mm(layer[:, :16], np.concatenate([a, ta], 1))
+            h, th = both[:, :points] + layer[:, 16:], both[:, points:]
+        sig = 1.0 / (1.0 + np.exp(1.0 - (last[:16] @ a + last[16])))
+        distances.append(d + sig)
+        tangents.append(td + sig * (1.0 - sig) * (last[:16] @ ta))
+    d, td = np.stack(distances, -1), np.stack(tangents, -1)
+    w = np.full_like(d, 1.0 / n)
+    u = (w * d).sum(-1)
+    return u, (w * td * (1.0 + (u[:, None] - d) / TAU)).sum(-1)
+
+
+def test_dir_forward_products_need_the_split_tf32_products():
+    """K3's layer products on the tensor cores, value and tangent blocks
+    alike, emulated in numpy at the main path's magnitudes
+    (``_dir_union_derivative``): one TF32 product per term breaks the 2e-4
+    bar on u_dot relative to its scale, the 3xTF32 split (big*big +
+    big*small + small*big) stays within 2e-6. Products of TF32 operands are
+    exact in f32, and the sums run in float64, so that what is measured is
+    the operands' rounding alone."""
+    f64 = lambda a, b: a.astype(np.float64) @ b.astype(np.float64)  # noqa: E731
+
+    def one(a, b):
+        return f64(_tf32(a), _tf32(b))
+
+    def three(a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        return f64(_tf32(a - ab), bb) + f64(ab, _tf32(b - bb)) + f64(ab, bb)
+
+    u, ud = _dir_union_derivative(f64)
+    scale = max(float(np.abs(ud).max()), 1.0)
+    u1, ud1 = _dir_union_derivative(one)
+    u3, ud3 = _dir_union_derivative(three)
+    assert float(np.abs(ud1 - ud).max()) / scale > 2e-4
+    assert float(np.abs(ud3 - ud).max()) / scale <= 2e-6
+    assert float(np.abs(u3 - u).max()) <= 2e-6
+
+
 def _field_args(x, device, use_rdf=True):
     c = {k: _t(v).to(device) for k, v in x.items()}
     return (c["pos"], c["loc"], c["rot"], c["half"], c["valid"], c["w"] if use_rdf else None,
@@ -721,6 +930,7 @@ def _field_args(x, device, use_rdf=True):
     (12, 3000, (1.0,) * 11 + (0.0,)),     # N > 10: the 128-thread CTAs
     (4, 3000, (0.0,) * 4),                # no valid instance: uniform weights
     (5, 2777, (1.0,) * 4 + (0.0,)),       # P not a multiple of the 128-point tiles
+    (1, 2777, (1.0,)),                    # one instance: w's rows are one float wide
 ])
 def test_rev_forward_matches_float64_twin_on_card(cuda, use_rdf, n, p, valid):
     """K1 (tensor-core layer products in 3xTF32) against the twin in
@@ -768,6 +978,85 @@ def test_rev_forward_keeps_frames_apart_on_card(cuda):
     moved["pos"][2] += 1.0
     moved["w"][2] *= 0.5
     for a, b in zip(fk.field_forward(*_field_args(moved, cuda)), got):
+        a = a.cpu().numpy()
+        np.testing.assert_array_equal(a[:2], b[:2])
+        assert not np.array_equal(a[2], b[2])
+
+
+def _dir_args(x, device, use_rdf=True):
+    c = {k: _t(v).to(device) for k, v in x.items()}
+    return (c["pos"], c["dirs"], c["loc"], c["rot"], c["half"], c["valid"],
+            c["w"] if use_rdf else None, torch.tensor(TAU, device=device))
+
+
+def _twin64_dir(x, use_rdf, device="cpu"):
+    """The twin's (u, w, u_dot) in float64 on the same float32 inputs."""
+    c = {k: _t(v).to(device, torch.float64) for k, v in x.items()}
+    outs = tff.scene_eval_dir(c["pos"], c["dirs"], c["loc"], c["rot"], c["half"], c["valid"],
+                              c["w"] if use_rdf else None,
+                              torch.tensor(TAU, dtype=torch.float64, device=device))
+    return [t.cpu().numpy() for t in outs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("n, p, valid", [
+    (8, 3000, (1.0,) * 6 + (0.0,) * 2),   # the main path's shape
+    (10, 3000, (1.0,) * 9 + (0.0,)),
+    (12, 3000, (1.0,) * 11 + (0.0,)),
+    (4, 3000, (0.0,) * 4),                # no valid instance: uniform weights
+    (5, 2777, (1.0,) * 4 + (0.0,)),       # P not a multiple of the CTA's points
+    (64, 600, (1.0,) * 63 + (0.0,)),      # the largest N: 128-thread CTAs with the field
+    (1, 2777, (1.0,)),                    # one instance: w's rows are one float wide
+    (2, 2777, (1.0, 0.0)),
+])
+def test_dir_forward_matches_float64_twin_on_card(cuda, use_rdf, n, p, valid):
+    """K3 (value and tangent as two column blocks of 3xTF32 tensor-core
+    products) against the twin in float64, with its CTA size and shared
+    memory at N, counted by its launch counters."""
+    x = _inputs(n=n, p=p, valid=valid, seed=6)
+    threads, smem, ctas = fk.dir_forward_info(n, use_rdf)
+    assert threads % 32 == 0 and smem <= 232_448 and ctas >= 1
+    fn = fk.field_dir_forward
+    before = (fn.launches, fn.rdf_launches)
+    got = [t.cpu().numpy() for t in fn(*_dir_args(x, cuda, use_rdf))]
+    assert (fn.launches, fn.rdf_launches) == (before[0] + 1, before[1] + int(use_rdf))
+    for name, a, b in zip(("u", "w", "u_dot"), got, _twin64_dir(x, use_rdf, cuda)):
+        assert _err(a, b) <= 2e-4, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+def test_dir_forward_is_repeatable_and_one_frame_batched_is_the_single_launch_on_card(
+        cuda, use_rdf):
+    """No atomics, sums in a fixed order: two launches agree bit for bit,
+    and F=1 through the batched entry point is the single-frame launch."""
+    x = _inputs(n=8, p=5000, valid=(1.0,) * 6 + (0.0,) * 2)
+    args = _dir_args(x, cuda, use_rdf)
+    first, second = fk.field_dir_forward(*args), fk.field_dir_forward(*args)
+    batched = fk.field_dir_forward(*[t if t is None or t.ndim == 0 else t[None] for t in args])
+    for a, b, c in zip(first, second, batched):
+        assert torch.equal(a, b) and torch.equal(c[0], a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+def test_dir_forward_keeps_frames_apart_on_card(cuda, use_rdf):
+    """K4b at F=3 frames of N=5 with ragged validity (4, 0 and 5 valid) and
+    P=2,777: each frame against the float64 twin, and changing one frame's
+    inputs leaves the others' outputs bit for bit."""
+    x = _batched_inputs((4, 0, 5), n=5, p=2777, seed=3)
+    before = fk.field_dir_forward.batched_launches
+    got = [t.cpu().numpy() for t in fk.field_dir_forward(*_dir_args(x, cuda, use_rdf))]
+    assert fk.field_dir_forward.batched_launches == before + 1
+    for f in range(3):
+        ref = _twin64_dir({k: v[f] for k, v in x.items()}, use_rdf, cuda)
+        for name, a, b in zip(("u", "w", "u_dot"), got, ref):
+            assert _err(a[f], b) <= 2e-4, (name, f)
+    moved = dict(x, pos=x["pos"].copy(), w=x["w"].copy())
+    moved["pos"][2] += 1.0
+    moved["w"][2] *= 0.5
+    for a, b in zip(fk.field_dir_forward(*_dir_args(moved, cuda, use_rdf)), got):
         a = a.cpu().numpy()
         np.testing.assert_array_equal(a[:2], b[:2])
         assert not np.array_equal(a[2], b[2])

@@ -2,6 +2,7 @@
 
     python3 tools/torch_port/step_profile.py                 # on one CUDA card
     python3 tools/torch_port/step_profile.py --frames 8      # 8 co-optimized frames
+    python3 tools/torch_port/step_profile.py --frames 8 --residual-coarse
     python3 tools/torch_port/step_profile.py --device cpu    # rehearsal, tiny frame
 
 For the box-only warmup phase (from step 0) and the residual-field phase
@@ -18,10 +19,12 @@ views at 376x1408, 8 instances, 1000 rays, 100+100 samples).
 ``--frames F`` profiles the co-optimized batch instead: the bench scene
 as frame 0 and the scenes of seeds 1..F-1, stacked, with params from
 ``init_params_batched``; a step then runs all F frames, and the report
-adds the wall time per frame-step.
+adds the wall time per frame-step. ``--residual-coarse`` runs the coarse
+pass with the residual field after warmup (``kernel_box_coarse=False``)
+instead of box-only.
 
 Each field kernel's device time per step is printed by name: K1/K4a
-(``rev_forward_kernel<.>``), K3/K4b (``dir_forward_kernel<.>``), and the
+(``rev_forward_kernel<.>``), K3/K4b (``tangent_forward_kernel<.>``), and the
 three kernels of one K2/K4c call (stage 1 ``union_cotangent_kernel``,
 stage 2 ``instance_backward_kernel``, then ``reduce_partials_kernel``).
 """
@@ -44,7 +47,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from vsrd_tpu_torch.pipeline import optimize as opt, sharded  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk  # noqa: E402
 
-FIELD_KERNELS = ("rev_forward_kernel", "dir_forward_kernel", "union_cotangent_kernel",
+FIELD_KERNELS = ("rev_forward_kernel", "tangent_forward_kernel", "union_cotangent_kernel",
                  "instance_backward_kernel", "reduce_partials_kernel")
 
 
@@ -55,6 +58,8 @@ def main(argv=None):
     parser.add_argument("--profiled-steps", type=int, default=5)
     parser.add_argument("--frames", type=int, default=1,
                         help="co-optimized frames per step (1: the single-frame path)")
+    parser.add_argument("--residual-coarse", action="store_true",
+                        help="the coarse pass with the residual field (kernel_box_coarse=False)")
     args = parser.parse_args(argv)
     device = args.device
     seeds = [31327077] + list(range(1, args.frames))
@@ -64,13 +69,14 @@ def main(argv=None):
         card = card_name_and_power()
         fk.build_library()
         frames = synthetic_frames(seeds, device)
-        cfg = opt.OptimizationConfig()
+        cfg = opt.OptimizationConfig(kernel_box_coarse=not args.residual_coarse)
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     else:
         card = "cpu (no device metric)"
         frames = synthetic_frames([0] + seeds[1:], device, num_views=2, image_size=(32, 48),
                                   num_instances=3, max_instances=3)
-        cfg = opt.OptimizationConfig(num_steps=40, warmup_steps=10, num_rays=16, num_samples=6)
+        cfg = opt.OptimizationConfig(num_steps=40, warmup_steps=10, num_rays=16, num_samples=6,
+                                     kernel_box_coarse=not args.residual_coarse)
         activities = [ProfilerActivity.CPU]
     print(card, flush=True)
     if args.frames == 1:

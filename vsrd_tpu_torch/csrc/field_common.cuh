@@ -13,12 +13,14 @@
 //   block with the bias last.
 //
 // The functions here carry tangents forward (K of them, seeded in the
-// instance frame; K3 and K2's stage 1), run the value forward and its
-// first-order reverse with respect to the position (K1/K4a), and, for the
-// backward kernel, run the reverse sweep of the one-tangent forward. The
-// per-point work is scalar f32 per thread, and the functions compile for
-// the host too (without nvcc), so that the math is checked against the
-// PyTorch twin on a machine without a GPU (tests/test_torch_kernels.py).
+// instance frame; K2's stage 1), run the value forward and its first-order
+// reverse with respect to the position (K1/K4a), run the value forward with
+// one tangent along the ray as a second column block of its layer products
+// (K3/K4b), and, for the backward kernel, run the reverse sweep of the
+// one-tangent forward. The per-point work is scalar f32 per thread, and the
+// functions compile for the host too (without nvcc), so that the math is
+// checked against the PyTorch twin on a machine without a GPU
+// (tests/test_torch_kernels.py).
 #pragma once
 
 #include <math.h>
@@ -366,6 +368,16 @@ VSRD_HD float ln_gelu(const float h[kHid], float y[kHid], float a[kHid], float c
   return istd;
 }
 
+// phi(y), the standard normal density, of a LayerNorm output y
+VSRD_HD float ln_pdf(float y) {
+#if defined(__CUDA_ARCH__)
+  // the fast exponential: |y| < 4 after a LayerNorm of 16, so a few ulp
+  return __expf(-0.5f * y * y) * 0.39894228040143268f;
+#else
+  return expf(-0.5f * y * y) * 0.39894228040143268f;
+#endif
+}
+
 // First-order reverse of a = GELU(LayerNorm(h)) from its residuals y, istd
 // and Phi(y): ybar = abar (Phi(y) + y phi(y)),
 // hbar = istd (ybar - mean(ybar) - y mean(ybar y)).
@@ -373,13 +385,7 @@ VSRD_HD void ln_gelu_rev(const float y[kHid], float istd, const float cdf[kHid],
                          const float abar[kHid], float hbar[kHid]) {
   float ybar[kHid], s = 0.f, sy = 0.f;
   for (int i = 0; i < kHid; ++i) {
-#if defined(__CUDA_ARCH__)
-    // the fast exponential: |y| < 4 after a LayerNorm of 16, so a few ulp
-    const float pdf = __expf(-0.5f * y[i] * y[i]) * 0.39894228040143268f;
-#else
-    const float pdf = expf(-0.5f * y[i] * y[i]) * 0.39894228040143268f;
-#endif
-    ybar[i] = abar[i] * (cdf[i] + y[i] * pdf);
+    ybar[i] = abar[i] * (cdf[i] + y[i] * ln_pdf(y[i]));
     s += ybar[i];
     sy += ybar[i] * y[i];
   }
@@ -544,6 +550,183 @@ VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
   }
   local_to_world(rot, gl, g);
   return box.d + sig;
+}
+
+// ---- The coarse forward's one-tangent form (K3/K4b) ----
+//
+// d_i and its derivative td_i along the point's world direction v, forward
+// mode: the tangent rides beside the value through every layer, so the
+// layer products take the value and the tangent as two column blocks of one
+// product and nothing is kept for a reverse. The union then weighs the
+// tangents once the max logit is known (dir_union). instance_dir is written
+// once; its layer products go through a product object, on the card
+// warp-wide mma.sync in 3xTF32 over both blocks (dir_forward.cu), on the
+// host scalar loops (tests/test_torch_kernels.py).
+
+// Box value d and its derivative td = <grad_x d, v> along the world
+// direction v, from the local gradient: td = <gl, R^T v>. tl = R^T v.
+VSRD_HD float box_dir(const BoxGrad& box, const float v[3], const float* rot, float tl[3],
+                      float& td) {
+  for (int c = 0; c < 3; ++c) tl[c] = v[0] * rot[c] + v[1] * rot[3 + c] + v[2] * rot[6 + c];
+  td = box.gl[0] * tl[0] + box.gl[1] * tl[1] + box.gl[2] * tl[2];
+  return box.d;
+}
+
+// x / scale as one product and one fma: 1 / scale split into hi = fl(1 /
+// scale) and lo = (1 - hi scale) / scale, the fma adding x lo to the exact
+// x hi before it rounds, so the result is the division's. x hi alone would
+// scale every encoding phase by one relative error (2.2e-8 at scale 100),
+// which the top frequency and a union with no valid instance carry into
+// u_dot (tests/test_torch_kernels.py, the smoke frame with no valid
+// instance: 1.9e-4 of scale against the float64 twin, 8.7e-5 with this).
+struct Scaler {
+  float hi, lo;
+  VSRD_HD explicit Scaler(float scale) : hi(1.f / scale), lo(fmaf(-hi, scale, 1.f) / scale) {}
+  VSRD_HD float operator()(float x) const { return fmaf(x, hi, x * lo); }
+};
+
+// a = GELU(y), y = LayerNorm(h) (no affine), and its tangent ta along th:
+// ty = istd (tc - y mean(y tc)), tc = th - mean(th), ta = (Phi(y) + y phi(y)) ty.
+// The arithmetic of layer_norm_fwd<1> and Gelu, once for both.
+VSRD_HD void ln_gelu_dir(const float h[kHid], const float th[kHid], float a[kHid],
+                         float ta[kHid]) {
+  float mean = 0.f, tmean = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+    mean += h[i];
+    tmean += th[i];
+  }
+  mean *= 1.f / kHid;
+  tmean *= 1.f / kHid;
+  float y[kHid], tc[kHid], var = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+    y[i] = h[i] - mean;
+    tc[i] = th[i] - tmean;
+    var += y[i] * y[i];
+  }
+  const float istd = 1.f / sqrtf(var * (1.f / kHid) + 1e-5f);
+  float p = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+    y[i] *= istd;
+    p += y[i] * tc[i];
+  }
+  p *= 1.f / kHid;
+  for (int i = 0; i < kHid; ++i) {
+    const float cdf = Gelu(y[i]).cdf;
+    a[i] = y[i] * cdf;
+    ta[i] = (cdf + y[i] * ln_pdf(y[i])) * istd * (tc[i] - y[i] * p);
+  }
+}
+
+// One instance's distance d and its derivative td along the world direction
+// v at the point x with the residual field. misc: the instance's kRevMisc
+// block (instance_rev's). The layer products of layers 0-3 go through prod,
+// which holds their accumulator C (16 rows, a value and a tangent block) and
+// reads their operand B from 16 staging rows of both blocks; prod.at(r) and
+// prod.tan_at(r) are this point's value and tangent entries of row r:
+//   begin(bias)   the value block of C = the bias rows, the tangent block 0
+//   forward(l, m) C += W_l B; for l = 0, W_0's 16 columns of coordinate m
+//   store()       the staging rows = C
+//   sync()        orders a point's writes of the rows before the product's
+//                 reads and back (on the card a warp's points share them)
+// Every call makes the same sequence of product calls, as the card's
+// warp-wide mma needs.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <class Prod>
+VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
+                           const float* rot, const float* half, const float* misc,
+                           const Scaler& inv, Prod& prod, float& td) {
+  const BoxGrad box(x, loc, rot, half);
+  float tl[3];
+  const float d = box_dir(box, v, rot, tl, td);
+  const float sym[3] = {inv(fabsf(box.l[0])), inv(box.l[1]), inv(box.l[2])};
+  const float tsym[3] = {inv(box.s[0] * tl[0]), inv(tl[1]), inv(tl[2])};
+
+  // layer 0, one coordinate's 16 encoding channels (two k-steps) at a time;
+  // the tangent of (cos, sin)(pi 2^k s) is pi 2^k ds (-sin, cos): no new
+  // transcendental
+  float e[2 * kFreq];
+  prod.begin(misc);
+  VSRD_UNROLL
+  for (int m = 0; m < 3; ++m) {
+    enc_dim<2>(sym[m], e);
+    for (int k = 0; k < kFreq; ++k) {
+      const float f = frequency(k) * tsym[m];
+      prod.at(2 * k) = e[2 * k];
+      prod.at(2 * k + 1) = e[2 * k + 1];
+      prod.tan_at(2 * k) = -e[2 * k + 1] * f;
+      prod.tan_at(2 * k + 1) = e[2 * k] * f;
+    }
+    prod.sync();
+    prod.forward(0, m);
+    prod.sync();
+  }
+  prod.store();
+  prod.sync();
+
+  // layers 1-4: LayerNorm + GELU with its tangent per point, then the product
+  float raw = misc[4 * kHid + kHid], traw = 0.f;
+  VSRD_UNROLL
+  for (int l = 1; l <= 4; ++l) {
+    float h[kHid], th[kHid], a[kHid], ta[kHid];
+    for (int i = 0; i < kHid; ++i) {
+      h[i] = prod.at(i);
+      th[i] = prod.tan_at(i);
+    }
+    ln_gelu_dir(h, th, a, ta);
+    if (l < 4) {
+      for (int i = 0; i < kHid; ++i) {
+        prod.at(i) = a[i];
+        prod.tan_at(i) = ta[i];
+      }
+      prod.sync();
+      prod.begin(misc + l * kHid);
+      prod.forward(l, 0);
+      prod.sync();
+      prod.store();
+      prod.sync();
+    } else {
+      for (int i = 0; i < kHid; ++i) {
+        raw += misc[4 * kHid + i] * a[i];
+        traw += misc[4 * kHid + i] * ta[i];
+      }
+    }
+  }
+  const float sig = sigmoidf(raw - 1.f);
+  td += sig * (1.f - sig) * traw;
+  return d + sig;
+}
+
+// The softmin union of one point from its instances' logits l, distances d
+// and tangents td (entries of inactive instances are not read): the max
+// logit first, then the sums, so no running rescale. Overwrites l with the
+// weights w (0 for inactive instances), returns u = sum w d and sets
+// u_dot = sum w td (1 + (u - d) / tau).
+VSRD_HD float dir_union(int n, const float* valid, bool any_valid, float* l, const float* d,
+                        const float* td, float tau, float& u_dot) {
+  float mx = -INFINITY;
+  for (int i = 0; i < n; ++i)
+    if (instance_active(valid[i], any_valid)) mx = fmaxf(mx, l[i]);
+  float z = 0.f, sd = 0.f;
+  for (int i = 0; i < n; ++i) {
+    if (!instance_active(valid[i], any_valid)) continue;
+    l[i] = expf(l[i] - mx);
+    z += l[i];
+    sd += l[i] * d[i];
+  }
+  const float u = sd / z;
+  float ud = 0.f;
+  for (int i = 0; i < n; ++i) {
+    if (!instance_active(valid[i], any_valid)) {
+      l[i] = 0.f;
+      continue;
+    }
+    l[i] /= z;
+    ud += l[i] * td[i] * (1.f + (u - d[i]) / tau);
+  }
+  u_dot = ud;
+  return u;
 }
 
 // Softmin-union cotangents at one point (stage A of the backward).

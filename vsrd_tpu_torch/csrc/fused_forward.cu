@@ -85,7 +85,7 @@
 #include <cuda_runtime.h>
 
 #include "field_common.cuh"
-#include "mma_tf32.cuh"
+#include "warp_product.cuh"
 
 namespace vsrd {
 
@@ -93,9 +93,6 @@ constexpr int kRowStride = 40;                 // staging row: 32 points + 8
 constexpr int kWarpStage = kHid * kRowStride;
 constexpr int kFragBlocks = 24;                // A fragments of one instance
 constexpr int kFragWords = kFragBlocks * 256;  // per block: big [32][4], small [32][4]
-constexpr int kRawSize = 1620;                 // kWeights, rounded up to 4
-constexpr int kMisc = 84;                      // kRevMisc, rounded up to 4
-constexpr size_t kMaxSmem = 232448;            // a CTA's shared memory on Hopper
 
 // Shared memory of a CTA of T threads (floats): the fragments, the warps'
 // staging blocks, the residual columns, the raw weights and the misc block,
@@ -110,84 +107,6 @@ struct RevLayout {
     return ((rdf ? kFixed : 0) + (size_t)T * (n + 1)) * sizeof(float);
   }
 };
-
-// A-fragment blocks: the forward of layer l (A = W_l) at k-step s, and the
-// reverse (A = W_l^T) at k-step s and, for layer 0, m-tile m (coordinate m)
-__host__ __device__ constexpr int fwd_block(int l, int s) { return l == 0 ? s : 6 + (l - 1) * 2 + s; }
-__host__ __device__ constexpr int rev_block(int l, int s, int m) {
-  return l == 0 ? 18 + m * 2 + s : 12 + (l - 1) * 2 + s;
-}
-
-// Block b's fragment of one lane from the raw weights, split into TF32 big
-// and small words.
-__device__ __forceinline__ void convert_block(const float* raw, unsigned* frag, int b, int lane) {
-  int l, s, m = 0;
-  bool rev;
-  if (b < 6) {
-    l = 0, s = b, rev = false;
-  } else if (b < 12) {
-    l = 1 + (b - 6) / 2, s = (b - 6) % 2, rev = false;
-  } else if (b < 18) {
-    l = 1 + (b - 12) / 2, s = (b - 12) % 2, rev = true;
-  } else {
-    l = 0, m = (b - 18) / 2, s = (b - 18) % 2, rev = true;
-  }
-  const int row = (l == 0 ? kEnc : kHid) + 1;
-  const float* W = raw + layer_offset(l);
-  const int gid = lane >> 2, t = lane & 3;
-  unsigned big[4], small[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int r = m * 16 + gid + (q & 1) * 8, k = s * 8 + t + (q >> 1) * 4;
-    split_tf32_finite(rev ? W[k * row + r] : W[r * row + k], big[q], small[q]);
-  }
-  *reinterpret_cast<uint4*>(frag + b * 256 + lane * 4) = make_uint4(big[0], big[1], big[2], big[3]);
-  *reinterpret_cast<uint4*>(frag + b * 256 + 128 + lane * 4) =
-      make_uint4(small[0], small[1], small[2], small[3]);
-}
-
-// c[nt] += A B over the warp's 4 n-tiles of 8 points, K = 8 * KSTEPS; A's
-// fragments from blocks block.., B from the staging rows (row k at
-// B + k * kRowStride, the warp's 32 points in columns 0-31)
-template <int KSTEPS>
-__device__ __forceinline__ void warp_product(const unsigned* frag, int block, const float* B,
-                                             int lane, float c[4][4]) {
-  const int gid = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int s = 0; s < KSTEPS; ++s) {
-    const uint4 big = *reinterpret_cast<const uint4*>(frag + (block + s) * 256 + lane * 4);
-    const uint4 small = *reinterpret_cast<const uint4*>(frag + (block + s) * 256 + 128 + lane * 4);
-    const unsigned ab[4] = {big.x, big.y, big.z, big.w};
-    const unsigned as[4] = {small.x, small.y, small.z, small.w};
-    const float* b = B + (s * 8 + t) * kRowStride + gid;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      unsigned bb[2], bs[2];
-      split_tf32_finite(b[nt * 8], bb[0], bs[0]);
-      split_tf32_finite(b[nt * 8 + 4 * kRowStride], bb[1], bs[1]);
-      mma3_split(c[nt], ab, as, bb, bs);
-    }
-  }
-}
-
-// c = bias (row o: bias[o]) or 0
-__device__ __forceinline__ void init_acc(float c[4][4], const float* bias, int lane) {
-  const int gid = lane >> 2;
-  const float lo = bias ? bias[gid] : 0.f, hi = bias ? bias[gid + 8] : 0.f;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) c[nt][0] = c[nt][1] = lo, c[nt][2] = c[nt][3] = hi;
-}
-
-// C's 16 rows into the staging rows at dst
-__device__ __forceinline__ void store_acc(float* dst, const float c[4][4], int lane) {
-  const int gid = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    *reinterpret_cast<float2*>(dst + gid * kRowStride + nt * 8 + 2 * t) = make_float2(c[nt][0], c[nt][1]);
-    *reinterpret_cast<float2*>(dst + (gid + 8) * kRowStride + nt * 8 + 2 * t) =
-        make_float2(c[nt][2], c[nt][3]);
-  }
-}
 
 // The layer products of instance_rev (field_common.cuh) on the tensor
 // cores: a warp's C [16 x 32] = A [16 x K] B [K x 32] over its own 32
@@ -205,12 +124,13 @@ struct WarpProduct {
       : frag(f), act(a), lane(l) {}
   __device__ __forceinline__ float& at(int row) { return act[row * kRowStride + lane]; }
   __device__ __forceinline__ void sync() { __syncwarp(); }
-  __device__ __forceinline__ void begin(const float* bias) { init_acc(c, bias, lane); }
+  __device__ __forceinline__ void begin(const float* bias) { init_acc<4>(c, bias, lane); }
   __device__ __forceinline__ void forward(int l, int m) {
-    warp_product<2>(frag, l == 0 ? fwd_block(0, 2 * m) : fwd_block(l, 0), act, lane, c);
+    warp_product<2, 4, kRowStride>(frag, l == 0 ? fwd_block(0, 2 * m) : fwd_block(l, 0), act,
+                                   lane, c);
   }
   __device__ __forceinline__ void reverse(int l) {
-    warp_product<2>(frag, rev_block(l, 0, 0), act, lane, c);
+    warp_product<2, 4, kRowStride>(frag, rev_block(l, 0, 0), act, lane, c);
   }
   __device__ __forceinline__ void hold() {
     const int gid = lane >> 2, t = lane & 3;
@@ -235,7 +155,7 @@ struct WarpProduct {
       for (int nt = 0; nt < 4; ++nt) mma3_split(c[nt], ab, as, bb[s][nt], bs[s][nt]);
     }
   }
-  __device__ __forceinline__ void store() { store_acc(act, c, lane); }
+  __device__ __forceinline__ void store() { store_acc<4, kRowStride>(act, c, lane); }
 };
 
 // Grid (ceil(P / T), F), T threads a CTA; see the note at the top of the file.

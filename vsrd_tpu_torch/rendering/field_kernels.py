@@ -14,7 +14,8 @@ Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
   cores (3xTF32), and the ordered reduction of the CTAs' partial rows;
 * K3 ``field_dir_forward``: u, w and the derivative of u along a
   per-point direction, forward only (``csrc/dir_forward.cu``; TPU
-  ``_dir_fwd_kernel``).
+  ``_dir_fwd_kernel``), the value and its tangent as two column blocks of
+  one set of layer products on the tensor cores in 3xTF32.
 
 Each launcher also takes F stacked frames: positions ``[F, P, 3]`` (and
 directions and cotangents with the same leading axis) with ``[F, N, ...]``
@@ -30,7 +31,8 @@ plain twins in ``fused_field`` (autograd and ``torch.func.jvp`` of the
 eager field, looped over frames for a leading frame axis); on CUDA tensors
 they launch the kernels or raise — there is no fallback. Each launcher
 counts its launches in ``<launcher>.launches`` and, of those, the ones
-with more than one frame (K4a/K4c/K4b) in ``<launcher>.batched_launches``.
+with more than one frame (K4a/K4c/K4b) in ``<launcher>.batched_launches``
+and the ones with the residual field in ``<launcher>.rdf_launches``.
 
 The kernels are compiled on first use with ``nvcc`` for ``sm_90a`` from
 ``csrc/`` into a plain-C shared library, loaded with ctypes. It goes to
@@ -140,8 +142,10 @@ def build_library() -> ctypes.CDLL:
     lib.vsrd_fused_backward.argtypes = [i32] * 4 + [ptr] * 10 + [f32, i32] + [ptr] * 5
     lib.vsrd_fused_backward_tiles.argtypes = [i32]
     lib.vsrd_rev_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
+    lib.vsrd_dir_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
     for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward, lib.vsrd_fused_backward,
-               lib.vsrd_fused_backward_tiles, lib.vsrd_rev_forward_info):
+               lib.vsrd_fused_backward_tiles, lib.vsrd_rev_forward_info,
+               lib.vsrd_dir_forward_info):
         fn.restype = i32
     _library = lib
     return lib
@@ -200,10 +204,12 @@ def _prepare(positions, locations, rotations, half_dims, valid, weights, tempera
     return lead, frames, contig, w, tau
 
 
-def _count(launcher, frames: int):
+def _count(launcher, frames: int, rdf: bool):
     launcher.launches += 1
     if frames > 1:
         launcher.batched_launches += 1
+    if rdf:
+        launcher.rdf_launches += 1
 
 
 def field_forward(positions, locations, rotations, half_dims, valid, weights,
@@ -222,7 +228,7 @@ def field_forward(positions, locations, rotations, half_dims, valid, weights,
         frames, p, n, int(w is not None), _ptr(pos), _ptr(loc), _ptr(rot), _ptr(half),
         _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts), _ptr(grad),
         _stream()), "K1/K4a fused_forward")
-    _count(field_forward, frames)
+    _count(field_forward, frames, w is not None)
     return u, wts, grad
 
 
@@ -253,7 +259,7 @@ def field_backward(positions, locations, rotations, half_dims, valid, weights,
         _ptr(rot), _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), tiles,
         _ptr(cot[0]), _ptr(cot[1]), _ptr(partial), _ptr(out), _stream()),
         "K2/K4c fused_backward")
-    _count(field_backward, frames)
+    _count(field_backward, frames, bool(rdf))
     dweights = out[..., :NUM_WEIGHTS] if rdf else None
     geo = out[..., row - _GEO:]
     return geo[..., 0:3], geo[..., 3:12].reshape(*lead, n, 3, 3), geo[..., 12:15], dweights
@@ -277,24 +283,36 @@ def field_dir_forward(positions, directions, locations, rotations, half_dims, va
         frames, p, n, int(w is not None), _ptr(pos), _ptr(dirs), _ptr(loc), _ptr(rot),
         _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(u), _ptr(wts),
         _ptr(u_dot), _stream()), "K3/K4b dir_forward")
-    _count(field_dir_forward, frames)
+    _count(field_dir_forward, frames, w is not None)
     return u, wts, u_dot
+
+
+def _launch_info(fn, what: str, num_instances: int, rdf: bool) -> tuple[int, int, int]:
+    threads, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _check(fn(num_instances, int(rdf), ctypes.byref(threads), ctypes.byref(smem),
+              ctypes.byref(ctas)), what)
+    return threads.value, smem.value, ctas.value
 
 
 def rev_forward_info(num_instances: int, rdf: bool = True) -> tuple[int, int, int]:
     """The K1/K4a kernel's threads per CTA, dynamic shared memory in bytes
     and CTAs per SM on the current card, for ``num_instances``."""
-    lib = build_library()
-    threads, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _check(lib.vsrd_rev_forward_info(num_instances, int(rdf), ctypes.byref(threads),
-                                     ctypes.byref(smem), ctypes.byref(ctas)), "rev_forward_info")
-    return threads.value, smem.value, ctas.value
+    return _launch_info(build_library().vsrd_rev_forward_info, "rev_forward_info",
+                        num_instances, rdf)
+
+
+def dir_forward_info(num_instances: int, rdf: bool = True) -> tuple[int, int, int]:
+    """The K3/K4b kernel's threads per CTA, dynamic shared memory in bytes
+    and CTAs per SM on the current card, for ``num_instances``."""
+    return _launch_info(build_library().vsrd_dir_forward_info, "dir_forward_info",
+                        num_instances, rdf)
 
 
 def reset_launch_counts():
     for fn in (field_forward, field_backward, field_dir_forward):
         fn.launches = 0
         fn.batched_launches = 0
+        fn.rdf_launches = 0
 
 
 reset_launch_counts()

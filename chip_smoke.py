@@ -14,7 +14,7 @@ Phases (any failure exits non-zero):
    PyTorch twin on the same inputs on the card (max error relative to the
    twin's scale <= 2e-4; the twin evaluated in float64, see kernel_phase),
    with kernel and twin times (median of 20 calls on the host clock, each
-   ending in a synchronize; the twin in float32), the kernel's time on
+   ending in a synchronize; the twin in float32, median of 5), the kernel's time on
    CUDA events over 20 launches, and its bound (kernel_bound); then
    the frame-batched launches K4a/K4c at F=8 frames x P=199,000 and K4b at
    F=8 x P=99,000, whose frames differ in boxes and validity (frame 1 has
@@ -58,12 +58,25 @@ Phases (any failure exits non-zero):
    two final checkpoints in the JAX package's layout, JV and K4a/K4c/K4b
    launched exactly once per step; a second run skips both frames and
    launches nothing; with one final checkpoint deleted, a third run
-   resumes that frame from step_19 (20 single-frame steps). Prints the
-   data-load seconds per frame (host) and the seconds per frame.
+   resumes that frame from step_19 (20 single-frame steps); a fourth run
+   with the photometric weight at 1.0 decodes the textured PNGs and
+   launches the sphere-trace kernel once per residual step for both frames.
+   Prints the data-load seconds per frame (host) and the seconds per frame;
+10. sphere trace: the sphere-trace kernel (csrc/sphere_trace.cu) against its
+   eager twin at R = 100 rays for F = 1 and 8 frames and over every pixel of
+   one 376x1408 view, box-only and with the residual field (trace_check);
+11. photometric slices: phases 6 and 7 again with the photometric weight at
+   1.0: one sphere-trace launch per residual step for all frames, a nonzero
+   photometric loss after warmup, and the residual step's ms/step at weight
+   0 and 1;
+12. renders: render_surface_mask (one sphere-trace launch over a view) and
+   render_instance_probabilities on frame 0, timed once each.
 
 The second-to-last line is a JSON object with one entry per kernel and
 mode of the paths: its launches in its path (K3 and K4b with the residual
-field: with the field in phase 8; JV: in the driver's first run), its
+field: with the field in phase 8; JV: in the driver's first run; the sphere
+trace: by mode from its counters in the photometric slices for R = 100 and
+in render_surface_mask for the view), its
 largest absolute error against the twin and that error relative to the
 twin's scale (the pullback to the field weights sums ~200k points, so its
 absolute error is large where its relative one is not), its time (``ms``,
@@ -90,6 +103,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 TOLERANCE = 2e-4          # max |kernel - twin| / max(max|twin|, 1)
 REPEATS = 20
+# the eager twins' timings, tens to hundreds of ms a call, steady to a few %
+PLAIN_REPEATS = 5
 FRAMES = 8                # the batched path's frames (seeds 0-7)
 BATCH_VALID = (6, 0, 8, 6, 8, 6, 8, 6)   # valid instances per frame, kernel phase
 PALLAS = "vsrd_tpu/rendering/pallas_field.py"
@@ -321,7 +336,8 @@ def kernel_phase(rdf: bool, batched: bool, report: dict, errors: dict):
         # the float32 twin's backward for all frames: the sum of each frame's
         _, loss_t, params_t = forward_graph(fused_field.scene_eval_with_grad,
                                             frame_inputs(x, f, torch.float32))
-        bwd_plain += median_ms(lambda: torch.autograd.grad(loss_t, params_t, retain_graph=True))
+        bwd_plain += median_ms(lambda: torch.autograd.grad(loss_t, params_t, retain_graph=True),
+                               PLAIN_REPEATS)
         del loss_t, params_t
     torch.cuda.synchronize()
     twin_fwd = (fused_field.scene_eval_with_grad_batched if batched
@@ -332,7 +348,7 @@ def kernel_phase(rdf: bool, batched: bool, report: dict, errors: dict):
         frames=frames, max_abs_err=fwd_abs,
         max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[0]}_{mode}_")),
         ms=median_ms(fwd), event_ms=event_ms(fwd),
-        plain_ms=median_ms(lambda: torch.no_grad()(twin_fwd)(*fwd_args)),
+        plain_ms=median_ms(lambda: torch.no_grad()(twin_fwd)(*fwd_args), PLAIN_REPEATS),
         bound=kernel_bound("K1", rdf, x))
     report[f"{names[1]}_{mode}"] = dict(
         frames=frames, max_abs_err=bwd_abs,
@@ -363,7 +379,8 @@ def kernel_phase(rdf: bool, batched: bool, report: dict, errors: dict):
         frames=frames, max_abs_err=dir_abs,
         max_rel_err=max(v for k, v in errors.items() if k.startswith(f"{names[2]}_{mode}_")),
         ms=median_ms(dirf), event_ms=event_ms(dirf),
-        plain_ms=median_ms(lambda: twin_dir(*dir_args)), bound=kernel_bound("K3", rdf, x))
+        plain_ms=median_ms(lambda: twin_dir(*dir_args), PLAIN_REPEATS),
+        bound=kernel_bound("K3", rdf, x))
     if rdf:
         # the other form: K1's kernel on the same inputs, in turns with K3
         epilogue = lambda: fk.field_forward(  # noqa: E731
@@ -395,6 +412,261 @@ def isolation_check(fk, fwd_args, x):
           "the other 7 frames are bit for bit unchanged", flush=True)
 
 
+# the value forward's least work per point and active instance, as counted
+# for FLOP_F32: the residual field's MLP (1,552 multiply-adds at 2 FLOP), its
+# encoding, LayerNorms, GELUs and sigmoid, the box SDF; box only, the box SDF
+# and the union's compare (rounded down)
+TRACE_FLOP = {"rdf": 3100, "box": 40}
+TRACE_ITERATIONS, TRACE_CRITERION, TRACE_RADIUS = 1000, 0.01, 100.0
+# an unconverged ray's end off the twin's ray: 2e-4 of the 100 m scale, the
+# card tests' bar for every position
+TRACE_ACROSS = 2e-4 * TRACE_RADIUS
+
+
+def trace_scene(frames: int, seed: int, valid_counts, device: str = "cuda"):
+    """Scene inputs of the sphere-trace kernel shaped like the main path's:
+    ``frames`` frames of 8 boxes 5-40 m ahead with their own validity and
+    residual-field weights, ``[F, N, ...]``."""
+    import torch
+
+    xs = [field_inputs(1, num_valid=c, seed=seed + 100 * f, device=device)
+          for f, c in enumerate(valid_counts[:frames])]
+    return {k: torch.stack([x[k] for x in xs]) for k in ("loc", "rot", "half", "valid",
+                                                         "weights")}
+
+
+def trace_rays(scene: dict, rays: int, seed: int):
+    """``rays`` rays per frame from a camera at the origin: half aimed at a
+    box centre (valid or not) with a jitter of a few tenths of a metre, half
+    spread over the view as the fine pass's are."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    frames, n = scene["valid"].shape
+    loc = scene["loc"].cpu().numpy()
+    aimed = rays // 2
+    dirs = np.empty((frames, rays, 3))
+    for f in range(frames):
+        targets = loc[f, rng.integers(0, n, aimed)] + rng.normal(size=(aimed, 3)) * 0.3
+        dirs[f, :aimed] = targets
+        dirs[f, aimed:] = rng.normal(size=(rays - aimed, 3)) * [0.3, 0.1, 1.0]
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device="cuda")  # noqa: E731
+    return t(np.zeros((frames, rays, 3))), t(dirs)
+
+
+def trace_check(label: str, scene: dict, origins, dirs, rdf: bool, temperature, card: str):
+    """The sphere-trace kernel against the eager loop (f32, on the card),
+    frame by frame: equal trip counts; ``converged`` equal except where the
+    deciding |sd| lies within 1e-5 of the criterion (counted); of the rays
+    that agree, the converged ones (the surfels, the march's only output
+    that the loss and the mask read) within 1e-4 m, except (counted) a
+    surfel whose stop the twin reproduces within 1e-4 m with the criterion
+    moved by 1e-5 (its deciding |sd| lay at the criterion, so it stopped a
+    trip sooner or later, up to 1 cm along its ray), and the others on the
+    same side of the bounding sphere and on the twin's ray, within
+    TRACE_ACROSS of it. An unconverged ray's distance along its ray is not
+    bounded: one that grazed a box and left took steps whose f32 rounding
+    the grazing amplifies (the card's fused multiply-adds against the eager
+    loop's ops), and its last step out of the sphere is tens of metres long
+    (PERF.md, section 7). Then the kernel's time (host median and events),
+    the twin's, and the bound. Returns the entry for the kernels line."""
+    import torch
+
+    from vsrd_tpu_torch.rendering import field_kernels as fk, renderer, scene as scene_mod
+
+    weights = scene["weights"] if rdf else None
+    args = (origins, dirs, torch.ones(origins.shape[:-1], dtype=torch.bool, device="cuda"),
+            scene["loc"], scene["rot"], scene["half"], scene["valid"], weights,
+            TRACE_ITERATIONS, TRACE_CRITERION, TRACE_RADIUS, temperature)
+    pos, conv, trips, evals = fk.sphere_trace(*args)
+    frames = origins.shape[0]
+    near, at_criterion, worst, across_worst, surfel_worst = 0, 0, 0.0, 0.0, 0.0
+    shifted_worst = 0.0
+    twin_s = 0.0
+    for f in range(frames):
+        sp = scene_mod.SceneParams(scene["loc"][f], scene["rot"][f], scene["half"][f],
+                                   scene["valid"][f] > 0.5, None if weights is None else weights[f])
+        field = (scene_mod.hard_scene_field(sp) if temperature is None
+                 else scene_mod.soft_scene_field(sp, temperature))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        tpos, tconv, ttrips, tsd = renderer.march_loop(
+            lambda p: scene_mod.batched_sdf(field, p), origins[f], dirs[f],
+            torch.ones_like(origins[f][..., :1], dtype=torch.bool), TRACE_ITERATIONS,
+            TRACE_CRITERION, TRACE_RADIUS)
+        torch.cuda.synchronize()
+        twin_s += time.perf_counter() - start
+        if int(trips[f]) != ttrips:
+            fail(f"sphere trace {label}, frame {f}: {int(trips[f])} trips, the twin {ttrips}")
+        differ = conv[f] != tconv[..., 0]
+        if differ.any():
+            at_edge = (tsd[..., 0].abs() - TRACE_CRITERION).abs() <= 1e-5
+            if (differ & ~at_edge).any():
+                fail(f"sphere trace {label}, frame {f}: converged differs on "
+                     f"{int(differ.sum())} rays, {int((differ & ~at_edge).sum())} of them with "
+                     f"|sd| farther than 1e-5 from the criterion")
+            near += int(differ.sum())
+        same = ~differ
+        gap = (pos[f] - tpos).abs().max(dim=-1).values
+        finite = torch.isfinite(tpos).all(-1)
+        if not torch.equal(torch.isfinite(pos[f]).all(-1), finite):
+            fail(f"sphere trace {label}, frame {f}: non-finite positions differ from the twin's")
+        surfels = same & finite & conv[f]
+        off = surfels & (gap > 1e-4)
+        if off.any():
+            # a surfel that stopped a trip sooner or later than the twin's:
+            # the twin's march of that ray with the criterion moved by 1e-5
+            # either way must end within 1e-4 m of the kernel's surfel
+            idx = off.nonzero()[:, 0]
+            explained = torch.zeros_like(idx, dtype=torch.bool)
+            for shift in (-1e-5, 1e-5):
+                spos, sconv, _, _ = renderer.march_loop(
+                    lambda p: scene_mod.batched_sdf(field, p), origins[f][idx], dirs[f][idx],
+                    torch.ones_like(idx[:, None], dtype=torch.bool), TRACE_ITERATIONS,
+                    TRACE_CRITERION + shift, TRACE_RADIUS)
+                explained |= sconv[..., 0] & (
+                    (pos[f][idx] - spos).abs().max(dim=-1).values <= 1e-4)
+            if not explained.all():
+                fail(f"sphere trace {label}, frame {f}: {int((~explained).sum())} surfels "
+                     f"differ by up to {float(gap[idx[~explained]].max()):.3e} m, and the "
+                     f"criterion moved by 1e-5 does not reproduce them")
+            at_criterion += int(off.sum())
+            shifted_worst = max(shifted_worst, float(gap[off].max()))
+        if (surfels & ~off).any():
+            surfel_worst = max(surfel_worst, float(gap[surfels & ~off].max()))
+        others = same & finite & ~conv[f]
+        if others.any():
+            inside = pos[f].norm(dim=-1) < TRACE_RADIUS
+            if not torch.equal(inside[others], (tpos.norm(dim=-1) < TRACE_RADIUS)[others]):
+                fail(f"sphere trace {label}, frame {f}: an unconverged ray ends on the other "
+                     f"side of the bounding sphere than the twin's")
+            delta = pos[f] - tpos
+            along = (delta * dirs[f]).sum(-1, keepdim=True)
+            across = (delta - along * dirs[f]).norm(dim=-1)
+            worst = max(worst, float(gap[others].max()))
+            across_worst = max(across_worst, float(across[others].max()))
+    if surfel_worst > 1e-4 or across_worst > TRACE_ACROSS:
+        fail(f"sphere trace {label}: surfels within {surfel_worst:.3e} m (bound 1e-4), the "
+             f"other rays' ends {across_worst:.3e} m off the twin's ray (bound {TRACE_ACROSS})")
+    run = lambda: fk.sphere_trace(*args)  # noqa: E731
+    valid = scene["valid"] > 0.5
+    active = torch.where(valid.any(-1), valid.sum(-1), valid.shape[-1]).to(torch.int64)
+    evaluations = int((evals.to(torch.int64) * active[:, None]).sum())
+    flop = evaluations * TRACE_FLOP["rdf" if rdf else "box"]
+    n = valid.shape[-1]
+    nbytes = origins.numel() * 4 * 2 + origins.shape[0] * origins.shape[1] * 2
+    nbytes += origins.numel() * 4 + frames * n * 16 * 4 + (weights.numel() * 4 if rdf else 0)
+    times = {"bytes": nbytes / PEAK_BYTES, "operations": flop / PEAK_F32}
+    bound_by = max(times, key=times.get)
+    entry = dict(frames=frames, rays=origins.shape[1], max_abs_err=surfel_worst,
+                 unconverged_max_abs_err=worst, unconverged_across=across_worst,
+                 near_criterion=near, stop_at_criterion=at_criterion,
+                 ms=median_ms(run, repeats=5), event_ms=event_ms(run, repeats=5),
+                 plain_ms=twin_s * 1e3, bound=(times[bound_by] * 1e3, bound_by),
+                 trips=trips.tolist(), converged_share=float(conv.float().mean()),
+                 mean_evaluations=float(evals.float().mean()))
+    print(f"[trace] {label}: trips {entry['trips']}, converged share "
+          f"{entry['converged_share']:.3f}, mean evaluations per ray "
+          f"{entry['mean_evaluations']:.1f}; = twin (trips, converged except {near} rays at the "
+          f"criterion, surfels within {surfel_worst:.2e} m except {at_criterion} (up to "
+          f"{shifted_worst:.2e} m) that the twin reproduces with the criterion moved by 1e-5, "
+          f"the other rays' ends within {across_worst:.2e} m of the twin's ray and "
+          f"{worst:.2e} m of its end); "
+          f"{entry['ms']:.3f} ms host, "
+          f"{entry['event_ms']:.3f} ms events (twin {entry['plain_ms']:.1f} ms; bound "
+          f"{entry['bound'][0]:.5f} ms by {bound_by}) on {card}", flush=True)
+    return entry
+
+
+def trace_phase(view_frame, card: str) -> dict:
+    """Phase 10: the sphere-trace kernel against its twin at the
+    photometric shapes (R = 100 rays, F = 1 and 8 frames, frame 1 of 8 with
+    no valid instance) and over every pixel of one 376x1408 view of the
+    slice's frame 0 (the hard union, and the softmin union at tau 0.5 of
+    render_surface_mask), box-only and with the residual field."""
+    import torch
+
+    from vsrd_tpu_torch.pipeline.frame import ray_directions_at
+
+    entries = {}
+    for frames in (1, FRAMES):
+        scene = trace_scene(frames, 7, BATCH_VALID)
+        origins, dirs = trace_rays(scene, 100, 8)
+        for rdf in (False, True):
+            entries[(frames, rdf)] = trace_check(
+                f"R=100 F={frames} {'rdf' if rdf else 'box'}", scene, origins, dirs, rdf, None,
+                card)
+    scene = trace_scene(1, 7, BATCH_VALID)
+    h, w = view_frame.image_size
+    origins, dirs = ray_directions_at(view_frame, torch.arange(h * w, device="cuda"))
+    origins, dirs = origins[None].contiguous(), dirs[None].contiguous()
+    for rdf in (False, True):
+        for temperature in (None, 0.5):
+            union = "hard" if temperature is None else "soft"
+            entries[("view", rdf, union)] = trace_check(
+                f"one {h}x{w} view, {union} union, {'rdf' if rdf else 'box'}", scene, origins,
+                dirs, rdf, temperature, card)
+    return entries
+
+
+def trace_modes(label: str) -> dict:
+    """The sphere-trace kernel's launches since the counts were set to 0,
+    by mode ("box hard", "rdf hard", "box soft", "rdf soft"), from its
+    counters: ``launches``, ``rdf_launches`` and ``soft_launches``. A run
+    that mixes the two unions fails, since the counters would not split
+    it."""
+    from vsrd_tpu_torch.rendering import field_kernels as fk
+
+    st = fk.sphere_trace
+    if st.soft_launches not in (0, st.launches):
+        fail(f"{label}: {st.soft_launches} of {st.launches} sphere-trace launches with the "
+             f"softmin union; the counters split only a run of one union")
+    union, other = ("soft", "hard") if st.launches and st.soft_launches else ("hard", "soft")
+    return {f"box {union}": st.launches - st.rdf_launches, f"rdf {union}": st.rdf_launches,
+            f"box {other}": 0, f"rdf {other}": 0}
+
+
+def render_phase(params, frame, cfg, card: str) -> dict:
+    """Phase 12: render_surface_mask (one launch of the sphere-trace kernel
+    over every pixel of view 0) and render_instance_probabilities (K1 in
+    row chunks) on the slice's frame 0 with its trained params at the last
+    step, timed once each."""
+    import torch
+
+    from vsrd_tpu_torch.pipeline import render_image
+    from vsrd_tpu_torch.rendering import field_kernels as fk
+
+    step = cfg.num_steps - 1
+    fk.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    mask = render_image.render_surface_mask(params, frame, step, cfg)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - start
+    if fk.sphere_trace.launches != 1 or mask.shape != frame.image_size:
+        fail(f"render_surface_mask: {fk.sphere_trace.launches} launches, shape {mask.shape}")
+    modes = trace_modes("render_surface_mask")
+    fk.reset_launch_counts()
+    start = time.perf_counter()
+    probs = render_image.render_instance_probabilities(params, frame, step, cfg)
+    torch.cuda.synchronize()
+    probs_s = time.perf_counter() - start
+    chunks = frame.image_size[0] // 8
+    if (probs.shape != (*frame.image_size, frame.max_instances)
+            or not torch.isfinite(probs).all() or fk.field_forward.launches != 2 * chunks):
+        fail(f"render_instance_probabilities: shape {tuple(probs.shape)}, "
+             f"{fk.field_forward.launches} K1 launches (expected {2 * chunks})")
+    share = float(mask.float().mean())
+    print(f"[render] render_surface_mask {mask_s * 1e3:.1f} ms (one sphere-trace launch, "
+          f"converged share {share:.4f}); render_instance_probabilities {probs_s * 1e3:.1f} ms "
+          f"({2 * chunks} K1 launches; max probability {float(probs.max()):.3f}) on {card}",
+          flush=True)
+    return {"mask_ms": mask_s * 1e3, "probs_ms": probs_s * 1e3, "converged_share": share,
+            "sphere_trace": modes}
+
+
 def run_path(label: str, frame, cfg, batched: bool):
     """Drive one path (``optimize_frame`` on one frame, or
     ``optimize_frames_batched`` on stacked frames) for cfg.num_steps steps
@@ -417,6 +689,8 @@ def run_path(label: str, frame, cfg, batched: bool):
     elapsed = time.perf_counter() - start
     counts = {name: (fn.batched_launches if batched else fn.launches - fn.batched_launches)
               for name, fn in zip(kernels, launchers)}
+    counts["sphere_trace"] = fk.sphere_trace.launches
+    counts["sphere_trace modes"] = trace_modes(label)
     total = {name: fn.launches for name, fn in zip(kernels, launchers)}
     rdf = {name: fn.rdf_launches for name, fn in zip(kernels, launchers)}
     steps, last, warm = cfg.num_steps, cfg.num_steps - 1, cfg.warmup_steps
@@ -435,6 +709,22 @@ def run_path(label: str, frame, cfg, batched: bool):
         matched = np.atleast_1d(scalars["num_matched"][step])
         if not np.all(matched == 8):
             fail(f"{label}: metrics at step {step + 1} matched {matched.tolist()} of 8 instances")
+    photometric = cfg.photometric_weight > 0.0 and frame.gray_images is not None
+    if counts["sphere_trace"] != (steps - warm if photometric else 0):
+        fail(f"{label}: the sphere-trace kernel launched {counts['sphere_trace']} times in "
+             f"{steps} steps (expected {steps - warm if photometric else 0})")
+    # the loss is 0 in warmup, and after it 0 only in a step where none of a
+    # frame's 100 surfels converged: every step has a frame with surfels and
+    # every frame has surfels in some step
+    photo = np.atleast_2d(scalars["photometric_loss"].T)
+    nonzero = photo[:, warm:] != 0
+    if photometric and ((photo[:, :warm] != 0).any() or not nonzero.any(0).all()
+                        or not nonzero.any(1).all()):
+        fail(f"{label}: photometric_loss {photo.tolist()} (0 in warmup, nonzero after)")
+    if photometric:
+        print(f"[{label}] photometric_loss per frame, residual steps: "
+              f"{[f'{v:.4f}' for v in photo[:, warm:].mean(-1)]} (mean); steps with "
+              f"converged surfels {nonzero.sum(1).tolist()} of {steps - warm}", flush=True)
     expected_rdf = dict(zip(kernels, (steps - warm, steps - warm,
                                       0 if cfg.kernel_box_coarse else steps - warm)))
     for name in kernels:
@@ -526,19 +816,29 @@ def matching_phase(card: str) -> dict:
     return timings[(16, 2)]
 
 
-def png_bytes(height: int, width: int) -> bytes:
-    """An all-black 8-bit RGB PNG, written with zlib and struct."""
+def png_bytes(pixels) -> bytes:
+    """An 8-bit RGB PNG of ``pixels [H, W, 3]`` (uint8), written with zlib and
+    struct: rows filtered by Sub and Up in turn, as an encoder would."""
     import struct
     import zlib
+
+    import numpy as np
 
     def chunk(kind, data):
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    rows = (b"\x00" + bytes(3 * width)) * height            # filter byte 0 per row
+    height, width = pixels.shape[:2]
+    flat = pixels.reshape(height, -1).astype(np.int16)
+    sub, up = flat.copy(), flat.copy()
+    sub[:, 3:] -= flat[:, :-3]
+    up[1:] -= flat[:-1]
+    rows = (np.where((np.arange(height) % 2 == 0)[:, None], sub, up) & 0xFF).astype(np.uint8)
+    kinds = np.where(np.arange(height) % 2 == 0, 1, 2).astype(np.uint8)[:, None]
+    raw = np.concatenate([kinds, rows], axis=1).tobytes()
     return (b"\x89PNG\r\n\x1a\n"
             + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows, 6)) + chunk(b"IEND", b""))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
 def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int = 0) -> str:
@@ -571,7 +871,7 @@ def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int =
     corners = [(np.asarray(UNIT_CORNERS) * half) @ r.T + c for r, c in zip(rots, centers)]
     ys, xs = np.mgrid[0:h, 0:w]
     rays = np.stack([(xs - k[0, 2]) / k[0, 0], (ys - k[1, 2]) / k[1, 1], np.ones((h, w))], -1)
-    png = png_bytes(h, w)
+    background = ((xs * 7 + ys * 3) % 96 + 64).astype(np.uint8)
     for frame in range(2 * targets[-1]):
         cam = np.array([0.0, 0.0, frame * step])
         depth = np.full((h, w), np.inf)
@@ -605,9 +905,12 @@ def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int =
             if mask.sum() >= 8:
                 annotation["masks"]["car"][str(26000 + i)] = rle.encode(mask)
                 annotation["boxes_3d"]["car"][str(26000 + i)] = (corners[i] - cam).tolist()
+        # textured: a ramp behind, each car a shade of its own with a stripe
+        # pattern along its image rows
+        gray = np.where(owner >= 0, 40 + 12 * owner + (ys % 8) * 4, background).astype(np.uint8)
         image = os.path.join(image_dir, f"{frame:010d}.png")
         with open(image, "wb") as file:
-            file.write(png)
+            file.write(png_bytes(np.repeat(gray[..., None], 3, axis=-1)))
         label = image.replace("data_2d_raw", "annotations").replace(".png", ".json")
         os.makedirs(os.path.dirname(label), exist_ok=True)
         with open(label, "w") as file:
@@ -676,15 +979,16 @@ def driver_phase(card: str) -> dict:
             json.dump(config, file)
         ckpt_root = os.path.join(root, "ckpts", "smoke", DRIVE)
 
-        def drive(label):
+        def drive(label, path=config_path):
             messages.clear()
             fk.reset_launch_counts()
             matching.reset_launch_counts()
             start = time.perf_counter()
-            driver.main(["--config", config_path, "--train"])
+            driver.main(["--config", path, "--train"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - start
-            counts = {"JV": matching.jv_assignment.launches}
+            counts = {"JV": matching.jv_assignment.launches,
+                      "sphere_trace": fk.sphere_trace.launches}
             for name, fn in launchers.items():
                 counts[name] = (fn.launches, fn.batched_launches)
             print(f"[driver] {label}: {wall:.2f} s; launches {counts} (all, with F > 1)",
@@ -701,7 +1005,7 @@ def driver_phase(card: str) -> dict:
         if len(loads) != 2:
             fail(f"driver: expected 2 frames of 17 views with 12 cars in bucket 16, got {messages}")
         steps = DRIVER_STEPS
-        expected = {"JV": steps, **{name: (steps, steps) for name in launchers}}
+        expected = {"JV": steps, "sphere_trace": 0, **{name: (steps, steps) for name in launchers}}
         if counts != expected:
             fail(f"driver: launches {counts}, expected {expected} (once per step for the batch)")
         done = finals()
@@ -732,7 +1036,7 @@ def driver_phase(card: str) -> dict:
               flush=True)
 
         _, again = drive("second run")
-        idle = {"JV": 0, **{name: (0, 0) for name in launchers}}
+        idle = {"JV": 0, "sphere_trace": 0, **{name: (0, 0) for name in launchers}}
         if sum("already optimized" in m for m in messages) != 2 or again != idle:
             fail(f"driver: the second run did not skip both frames: {messages}, {again}")
 
@@ -742,11 +1046,38 @@ def driver_phase(card: str) -> dict:
         if not any(f"resuming from step_{DRIVER_CKPT - 1}" in m for m in messages):
             fail(f"driver: the third run did not resume from step_{DRIVER_CKPT - 1}: {messages}")
         if (sum("already optimized" in m for m in messages) != 1 or finals() != done
-                or resumed != {"JV": rest, **{name: (rest, 0) for name in launchers}}):
+                or resumed != {"JV": rest, "sphere_trace": 0,
+                               **{name: (rest, 0) for name in launchers}}):
             fail(f"driver: the resumed run: {messages}, launches {resumed}")
         print(f"[driver] second run skipped both frames with no launch; third run resumed "
               f"frame 0 from step_{DRIVER_CKPT - 1} for {rest} single-frame steps", flush=True)
-        return {"launches": counts, "load_s": loads, "wall_s": wall}
+
+        # the photometric branch: the driver decodes the textured PNGs
+        config["loss_weights"] = dict(config.get("loss_weights", {}), photometric_loss=1.0)
+        photo_path = config_path.replace(os.sep + "smoke" + os.sep,
+                                         os.sep + "smoke_photometric" + os.sep)
+        os.makedirs(os.path.dirname(photo_path))
+        with open(photo_path, "w") as file:
+            json.dump(config, file)
+        photo_wall, photo_counts = drive("fourth run, photometric weight 1.0", photo_path)
+        photo_loads = [float(m) for m in re.findall(
+            r"17 views at 376x1408, 12 instances in bucket 16: ([\d.]+) s", "\n".join(messages))]
+        photo_done = sorted(glob.glob(os.path.join(
+            root, "ckpts", "smoke_photometric", "**", f"step_{steps - 1}.npz"), recursive=True))
+        want = {"JV": steps, "sphere_trace": steps - DRIVER_WARMUP,
+                **{name: (steps, steps) for name in launchers}}
+        if photo_counts != want or len(photo_done) != 2 or len(photo_loads) != 2:
+            fail(f"driver, photometric run: launches {photo_counts} (expected {want}), "
+                 f"{len(photo_done)} final checkpoints, {messages}")
+        photo_metrics = saver.load_checkpoint(photo_done[0])["metrics"]
+        if not all(np.isfinite(v).all() for v in photo_metrics.values()):
+            fail(f"driver, photometric run: non-finite metrics {photo_metrics}")
+        print(f"[driver] photometric run: 2 frames, sphere trace launched "
+              f"{photo_counts['sphere_trace']} times; data load with the pixels decoded "
+              f"{', '.join(f'{t:.2f}' for t in photo_loads)} s per frame; {photo_wall / 2:.2f} s "
+              f"per frame with it on {card}", flush=True)
+        return {"launches": counts, "load_s": loads, "wall_s": wall,
+                "photometric_load_s": photo_loads, "photometric_wall_s": photo_wall}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -809,7 +1140,7 @@ def main():
           f"{time.perf_counter() - script_start:.1f} s", flush=True)
 
     start = time.perf_counter()
-    frames = synthetic_frames(list(range(FRAMES)), "cuda")
+    frames = synthetic_frames(list(range(FRAMES)), "cuda", with_images=True)
     torch.cuda.synchronize()
     print(f"[frames] {FRAMES} synthetic frames 17x376x1408, 8 instances: "
           f"{time.perf_counter() - start:.1f} s", flush=True)
@@ -820,8 +1151,17 @@ def main():
     coarse_cfg = dataclasses.replace(cfg, num_steps=20, warmup_steps=10, checkpoint_interval=10,
                                      metric_interval=10, kernel_box_coarse=False)
 
+    trace = trace_phase(frames[0], card)
+    photo_cfg = dataclasses.replace(cfg, photometric_weight=1.0)
+
     params, launches, _ = run_path("slice", frames[0], cfg, batched=False)
     single_ms = step_times(frames[0], params, cfg)
+    del params
+    params, photo_launches, _ = run_path("photometric slice", frames[0], photo_cfg,
+                                         batched=False)
+    photo_ms = {"weight 0": step_times(frames[0], params, cfg)["rdf"],
+                "weight 1": step_times(frames[0], params, photo_cfg)["rdf"]}
+    renders = render_phase(params, frames[0], cfg, card)
     del params
     _, _, coarse_launches = run_path("slice, residual coarse pass", frames[0], coarse_cfg,
                                      batched=False)
@@ -834,6 +1174,16 @@ def main():
         print(f"[step] {phase}: median ms/step F=1 {single_ms[phase]:.2f}, F={FRAMES} "
               f"{batch_ms[phase]:.2f} ({batch_ms[phase] / FRAMES:.2f} per frame-step) "
               f"on {card}", flush=True)
+    del params
+    params, batched_photo, _ = run_path("batched photometric slice", batch, photo_cfg,
+                                        batched=True)
+    batch_photo_ms = {"weight 0": step_times(batch, params, cfg)["rdf"],
+                      "weight 1": step_times(batch, params, photo_cfg)["rdf"]}
+    for label, times, f in (("F=1", photo_ms, 1), (f"F={FRAMES}", batch_photo_ms, FRAMES)):
+        print(f"[step] residual phase {label}: median ms/step photometric weight 0 "
+              f"{times['weight 0']:.2f}, weight 1 {times['weight 1']:.2f} "
+              f"(+{times['weight 1'] - times['weight 0']:.2f} ms/step, "
+              f"{times['weight 1'] / f:.2f} per frame-step) on {card}", flush=True)
     del params
     _, _, batched_coarse = run_path("batched slice, residual coarse pass", batch, coarse_cfg,
                                     batched=True)
@@ -892,6 +1242,38 @@ def main():
         "bound_by": jv["bound"][1],
         "library_ms": None,
     })
+    # each entry's launches: the counts of its mode in the run of its shape,
+    # the photometric slices (R = 100) and render_surface_mask (one view)
+    trace_launches = {1: photo_launches["sphere_trace modes"],
+                      FRAMES: batched_photo["sphere_trace modes"],
+                      "view": renders.pop("sphere_trace")}
+    for key, entry in trace.items():
+        if key[0] == "view":
+            mode = f"{'rdf' if key[1] else 'box'} {key[2]}"
+            name, launched = f"sphere_trace ({mode}, view)", trace_launches["view"][mode]
+        else:
+            frames_n, rdf = key
+            mode = f"{'rdf' if rdf else 'box'} hard"
+            name = f"sphere_trace ({mode}, R=100, F={frames_n})"
+            launched = trace_launches[frames_n][mode]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vsrd_tpu_torch/csrc/sphere_trace.cu",
+            "replaces": "vsrd_tpu/rendering/renderer.py:355",
+            "frames": entry["frames"],
+            "launches": launched,
+            "max_abs_err": entry["max_abs_err"],
+            "max_rel_err": entry["max_abs_err"] / TRACE_RADIUS,
+            "ms": entry["ms"],
+            "event_ms": entry["event_ms"],
+            "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound"][0],
+            "bound_by": entry["bound"][1],
+            "library_ms": None,
+            "near_criterion": entry["near_criterion"],
+        })
+    print(f"[render] {json.dumps(renders)}", flush=True)
     if not all(math.isfinite(k["ms"]) and math.isfinite(k["event_ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"[time] whole run: {time.perf_counter() - script_start:.1f} s", flush=True)

@@ -56,6 +56,7 @@ import torch
 from vsrd_tpu_torch.ops import matching as tmatch
 from vsrd_tpu_torch.rendering import field_kernels as fk
 from vsrd_tpu_torch.rendering import fused_field as tff
+from vsrd_tpu_torch.rendering import renderer, scene
 
 torch.set_num_threads(2)
 TAU = 0.5
@@ -241,6 +242,45 @@ extern "C" void host_forward_rev(int P, int N, const float* pos, const float* lo
   }
 }
 
+// The sphere-trace kernel's two passes on the host, frame by frame: every
+// ray's march_ray with the frame's trip marks, the frame's trip count, then
+// finish_ray. fg [F, R] bytes; converged [F, R] bytes out.
+extern "C" void host_sphere_trace(int F, int R, int N, int num_iterations, const float* origins,
+                                  const float* dirs, const unsigned char* fg, const float* loc,
+                                  const float* rot, const float* half, const float* valid,
+                                  const float* W, float scale, float tau, float radius,
+                                  float crit, float* positions, unsigned char* converged,
+                                  int* trips) {
+  struct Mark {
+    unsigned char* row;
+    void operator()(int t) const { row[t] = 1; }
+  };
+  for (int f = 0; f < F; ++f) {
+    std::vector<unsigned char> marked(num_iterations + 1, 0);
+    Mark mark{marked.data()};
+    const float* vf = valid + f * N;
+    const SceneField field{N, loc + f * 3 * N, rot + f * 9 * N, half + f * 3 * N, vf,
+                           W ? W + f * N * kWeights : nullptr, any_valid_of(N, vf),
+                           Scaler(scale), tau};
+    std::vector<TraceRecord> records(R);
+    std::vector<TraceRay> starts(R);
+    for (int r = 0; r < R; ++r) {
+      const int ray = f * R + r;
+      starts[r] = TraceRay{{origins[3 * ray], origins[3 * ray + 1], origins[3 * ray + 2]},
+                           fg[ray] != 0, false};
+      records[r] = march_ray(field, starts[r], dirs + 3 * ray, num_iterations, radius, crit, mark);
+    }
+    trips[f] = frame_trips(marked.data(), num_iterations);
+    for (int r = 0; r < R; ++r) {
+      const int ray = f * R + r;
+      const TraceRay s =
+          finish_ray(field, starts[r], dirs + 3 * ray, records[r], trips[f], radius, crit);
+      for (int c = 0; c < 3; ++c) positions[3 * ray + c] = s.p[c];
+      converged[ray] = s.conv;
+    }
+  }
+}
+
 // K2's per-point work, summed over points in order: out [N, kParams]. As on
 // the card, the weights are copied into the Padded layout and the LayerNorm
 // residuals kept in a strided column.
@@ -351,6 +391,7 @@ def host_lib(tmp_path_factory):
     lib.host_dir_forward_scalar.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32, ptr]
     lib.host_backward.argtypes = [i32, i32] + [ptr] * 9 + [f32, f32, ptr]
     lib.host_forward_rev.argtypes = [i32, i32] + [ptr] * 6 + [f32, f32] + [ptr] * 3
+    lib.host_sphere_trace.argtypes = [i32] * 4 + [ptr] * 8 + [f32] * 4 + [ptr] * 3
     return lib
 
 
@@ -439,6 +480,102 @@ def test_host_backward_math_matches_twin_pullback(host_lib, use_rdf, valid):
     ref = _twin_pullback(x, use_rdf)[3:]
     for name, a, b in zip(("dloc", "drot", "dhalf", "dweights"), got, ref):
         assert _err(a, b) <= 1e-4, name
+
+
+def _trace_inputs(frames=2, n=4, r=64, seed=0, valid_counts=None):
+    """F frames of N boxes about 12 m ahead, the first half of each frame's
+    rays from the camera (some hit, some leave the 30 m sphere), the rest
+    from 40 m behind it, entering the sphere by initialization; frame 1
+    (if any) has no valid instance by default."""
+    rng = np.random.default_rng(seed)
+    if valid_counts is None:
+        valid_counts = [max(n - 1, 1)] + [0] * (frames - 1)
+    angles = rng.uniform(-1, 1, (frames, n))
+    x = dict(
+        loc=rng.normal(size=(frames, n, 3)) * 2.0 + np.array([0.0, 0.0, 12.0]),
+        rot=np.stack([[[[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+                       for a in row] for row in angles]),
+        half=rng.uniform(0.5, 2.0, size=(frames, n, 3)),
+        valid=np.stack([np.arange(n) < c for c in valid_counts]).astype(np.float64),
+        w=rng.normal(size=(frames, n, fk.NUM_WEIGHTS)) * 0.3,
+    )
+    half_r = r // 2
+    spread = np.concatenate([np.full(half_r, 0.5), np.full(r - half_r, 0.08)])
+    d = np.stack([rng.uniform(-1, 1, (frames, r)) * spread,
+                  rng.uniform(-1, 1, (frames, r)) * spread, np.ones((frames, r))], axis=-1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.zeros((frames, r, 3))
+    o[:, half_r:, 2] = -40.0
+    x.update(origins=o, dirs=d)
+    x = {k: np.ascontiguousarray(v, np.float32) for k, v in x.items()}
+    # the camera's rays start where they are; the far ones on the sphere
+    t = {k: _t(v) for k, v in x.items()}
+    near, _, hit = renderer.sphere_intersection(t["origins"], t["dirs"], 30.0)
+    far = torch.arange(r) >= half_r
+    start = torch.where(hit & far[:, None], t["origins"] + t["dirs"] * near, t["origins"])
+    x["origins"] = np.ascontiguousarray(start.numpy())
+    x["fg"] = np.ascontiguousarray((~far | hit[..., 0]).numpy())
+    return x
+
+
+def _twin_trace(x, use_rdf, iters, tau=None, device="cpu", dtype=torch.float32):
+    c = {k: _t(v).to(device) for k, v in x.items()}
+    c = {k: v.to(dtype) if v.is_floating_point() else v for k, v in c.items()}
+    sp = scene.SceneParams(c["loc"], c["rot"], c["half"], c["valid"] > 0.5,
+                           c["w"] if use_rdf else None)
+    p, conv, trips = scene.march(sp.__class__(*(t.cpu() if t is not None else None for t in sp)),
+                                 c["origins"].cpu(), c["dirs"].cpu(), c["fg"].cpu()[..., None],
+                                 iters, 0.01, 30.0, temperature=tau)
+    return p.numpy(), conv[..., 0].numpy(), trips.numpy()
+
+
+def _host_trace(lib, x, use_rdf, iters, tau=None):
+    f, r, _ = x["origins"].shape
+    n = x["loc"].shape[1]
+    pos = np.zeros((f, r, 3), np.float32)
+    conv = np.zeros((f, r), np.uint8)
+    trips = np.zeros(f, np.int32)
+    fg = np.ascontiguousarray(x["fg"].astype(np.uint8))
+    lib.host_sphere_trace(f, r, n, iters, _ptr(x["origins"]), _ptr(x["dirs"]), _ptr(fg),
+                          *map(_ptr, (x["loc"], x["rot"], x["half"], x["valid"],
+                                      x["w"] if use_rdf else None)),
+                          SCALE, 0.0 if tau is None else tau, 30.0, 0.01, _ptr(pos),
+                          _ptr(conv), _ptr(trips))
+    return pos, conv.astype(bool), trips
+
+
+def _assert_trace_positions(pos, ref, converged, tolerance=4e-6):
+    """The surfels (converged rays) within 1e-4 m; every ray within
+    ``tolerance`` of the 100 m position scale. A ray that left the sphere
+    ends tens of metres out after as many f32 steps, each rounded to the
+    ulp of its position: the host's arithmetic follows the twin's order
+    (4e-6), the card's adds fused multiply-adds and its own sincosf (2e-4,
+    the bar for compiled kernels)."""
+    finite = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(pos), finite)
+    surfels = finite & converged[..., None]
+    np.testing.assert_allclose(pos[surfels], ref[surfels], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(pos[finite], ref[finite], atol=tolerance * SCALE, rtol=0)
+
+
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("iters, tau", [(200, None), (7, None), (200, TAU)])
+def test_host_sphere_trace_matches_twin(host_lib, use_rdf, iters, tau):
+    """The kernel's per-ray march, its trip marks and its finish, against
+    the eager loop per frame: the hard union (with a frame of no valid
+    instance, which stops after one trip), a cap at 7 trips with rays
+    still marching, and the softmin union of render_surface_mask."""
+    x = _trace_inputs()
+    pos, conv, trips = _host_trace(host_lib, x, use_rdf, iters, tau)
+    tpos, tconv, ttrips = _twin_trace(x, use_rdf, iters, tau)
+    np.testing.assert_array_equal(trips, ttrips)
+    np.testing.assert_array_equal(conv, tconv)
+    _assert_trace_positions(pos, tpos, tconv)
+    assert conv[0].any() and (~x["fg"][0] | (np.linalg.norm(pos[0], axis=-1) >= 30)).any()
+    if tau is None:
+        assert trips[1] == min(iters, 1)
+    if iters == 7:
+        assert trips[0] == 7
 
 
 def test_build_dir_takes_the_override_then_the_checkout_then_the_package(
@@ -1094,3 +1231,29 @@ def test_jv_kernel_matches_its_twin_on_card(cuda, n):
     assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
     padded = torch.where(valid[3][:, None] & valid[3][None, :], cost[3], tmatch.PAD_COST)
     assert torch.equal(tmatch.jv_assignment(padded.to(cuda)).cpu(), want[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdf", [False, True])
+@pytest.mark.parametrize("n", [1, 8, 16])
+@pytest.mark.parametrize("frames", [1, 3])
+def test_sphere_trace_matches_twin_on_card(cuda, use_rdf, n, frames):
+    """The sphere-trace kernel against the eager loop: one launch for all
+    frames (frame 1 of 3 has no valid instance), the hard union and, at
+    N = 8, the softmin union."""
+    x = _trace_inputs(frames=frames, n=n, r=300, seed=n,
+                      valid_counts=[max(n - 2, 1), 0, n][:frames])
+    for tau in (None, TAU) if n == 8 else (None,):
+        c = {k: _t(v).to(cuda) for k, v in x.items()}
+        st = fk.sphere_trace
+        before = (st.launches, st.batched_launches, st.rdf_launches, st.soft_launches)
+        pos, conv, trips, _ = fk.sphere_trace(
+            c["origins"], c["dirs"], c["fg"], c["loc"], c["rot"], c["half"], c["valid"],
+            c["w"] if use_rdf else None, 300, 0.01, 30.0, tau, SCALE)
+        after = (st.launches, st.batched_launches, st.rdf_launches, st.soft_launches)
+        assert np.subtract(after, before).tolist() == [1, int(frames > 1), int(use_rdf),
+                                                       int(tau is not None)]
+        tpos, tconv, ttrips = _twin_trace(x, use_rdf, 300, tau)
+        np.testing.assert_array_equal(trips.cpu().numpy(), ttrips)
+        np.testing.assert_array_equal(conv.cpu().numpy(), tconv)
+        _assert_trace_positions(pos.cpu().numpy(), tpos, tconv, tolerance=2e-4)

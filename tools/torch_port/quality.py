@@ -3,6 +3,7 @@ time and quality.
 
     python3 tools/torch_port/quality.py                 # on one CUDA card
     python3 tools/torch_port/quality.py --frames 8      # 8 co-optimized frames
+    python3 tools/torch_port/quality.py --photometric-weight 1.0   # with the photometric loss
     python3 tools/torch_port/quality.py --device cpu --views 2 --size 32 48 \
         --instances 3 --steps 4 --warmup 2 --rays 16 --samples 6    # rehearsal
 
@@ -21,6 +22,11 @@ The parameters are initialised from ``--init-seed``.
 ``--seed`` scene as frame 0 and the scenes of seeds 1..F-1. It reports the
 seconds per frame (the run's time over F) and each frame's final
 ``iou_3d``.
+
+``--photometric-weight W`` turns the photometric branch on at weight W
+(the frames then carry their gray images): after warmup each step also
+sphere-traces 100 surfels per frame with the sphere-trace kernel and warps
+their patches into every view. The run reports the kernel's launches.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ def main(argv=None):
     parser.add_argument("--samples", type=int, default=defaults.num_samples)
     parser.add_argument("--frames", type=int, default=1,
                         help="co-optimized frames (1: the single-frame path)")
+    parser.add_argument("--photometric-weight", type=float, default=0.0,
+                        help="the photometric loss's weight (0: the branch is off)")
     args = parser.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device (use --device cpu for a rehearsal)")
@@ -72,14 +80,16 @@ def main(argv=None):
         fk.build_library()
     frames = synthetic_frames([args.seed] + list(range(1, args.frames)), args.device,
                               num_views=args.views, image_size=tuple(args.size),
-                              num_instances=args.instances, max_instances=args.instances)
+                              num_instances=args.instances, max_instances=args.instances,
+                              with_images=args.photometric_weight > 0.0)
     frame = frames[0] if args.frames == 1 else sharded.stack_frames(frames)
     del frames
     interval = min(500, args.steps)
     cfg = opt.OptimizationConfig(num_steps=args.steps, warmup_steps=args.warmup,
                                  num_rays=args.rays, num_samples=args.samples,
                                  checkpoint_interval=interval,
-                                 metric_interval=min(defaults.metric_interval, interval))
+                                 metric_interval=min(defaults.metric_interval, interval),
+                                 photometric_weight=args.photometric_weight)
 
     fk.reset_launch_counts()
     if args.device == "cuda":
@@ -97,7 +107,8 @@ def main(argv=None):
     # [steps] or [steps, F] -> [F, steps]
     iou, iou_bev, loss = (np.atleast_2d(scalars[k].T) for k in ("iou_3d", "iou_bev", "loss"))
     print(f"[quality] seed {args.seed}, F={args.frames}, {args.steps} steps ({args.warmup} "
-          f"warmup), {args.views} views {args.size[0]}x{args.size[1]}, {args.instances} "
+          f"warmup), photometric weight {args.photometric_weight}, {args.views} views "
+          f"{args.size[0]}x{args.size[1]}, {args.instances} "
           f"instances, {args.rays} rays, {args.samples}+{args.samples} samples: "
           f"{seconds:.2f} s in all, {seconds / args.frames:.2f} s/frame on {card}", flush=True)
     for f in range(args.frames):
@@ -108,8 +119,8 @@ def main(argv=None):
     print(f"[quality] kernel launches K1/K4a {fk.field_forward.launches} "
           f"K2/K4c {fk.field_backward.launches} K3/K4b {fk.field_dir_forward.launches} "
           f"(with F > 1 frames: {fk.field_forward.batched_launches}, "
-          f"{fk.field_backward.batched_launches}, {fk.field_dir_forward.batched_launches})",
-          flush=True)
+          f"{fk.field_backward.batched_launches}, {fk.field_dir_forward.batched_launches}); "
+          f"sphere trace {fk.sphere_trace.launches}", flush=True)
 
 
 if __name__ == "__main__":

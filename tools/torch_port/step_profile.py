@@ -3,6 +3,7 @@
     python3 tools/torch_port/step_profile.py                 # on one CUDA card
     python3 tools/torch_port/step_profile.py --frames 8      # 8 co-optimized frames
     python3 tools/torch_port/step_profile.py --frames 8 --residual-coarse
+    python3 tools/torch_port/step_profile.py --photometric   # photometric weight 1.0
     python3 tools/torch_port/step_profile.py --device cpu    # rehearsal, tiny frame
 
 For the box-only warmup phase (from step 0) and the residual-field phase
@@ -21,7 +22,10 @@ as frame 0 and the scenes of seeds 1..F-1, stacked, with params from
 ``init_params_batched``; a step then runs all F frames, and the report
 adds the wall time per frame-step. ``--residual-coarse`` runs the coarse
 pass with the residual field after warmup (``kernel_box_coarse=False``)
-instead of box-only.
+instead of box-only. ``--photometric`` sets the photometric weight to 1.0 on
+frames with images, so that each residual step also runs the photometric
+branch (one launch of ``march_kernel`` and ``finish_kernel``, the
+sphere-trace kernel, for all frames).
 
 Each field kernel's device time per step is printed by name: K1/K4a
 (``rev_forward_kernel<.>``), K3/K4b (``tangent_forward_kernel<.>``), and the
@@ -48,7 +52,8 @@ from vsrd_tpu_torch.pipeline import optimize as opt, sharded  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk  # noqa: E402
 
 FIELD_KERNELS = ("rev_forward_kernel", "tangent_forward_kernel", "union_cotangent_kernel",
-                 "instance_backward_kernel", "reduce_partials_kernel")
+                 "instance_backward_kernel", "reduce_partials_kernel", "march_kernel",
+                 "finish_kernel")
 
 
 def main(argv=None):
@@ -60,7 +65,10 @@ def main(argv=None):
                         help="co-optimized frames per step (1: the single-frame path)")
     parser.add_argument("--residual-coarse", action="store_true",
                         help="the coarse pass with the residual field (kernel_box_coarse=False)")
+    parser.add_argument("--photometric", action="store_true",
+                        help="the photometric branch at weight 1.0")
     args = parser.parse_args(argv)
+    photometric = dict(photometric_weight=1.0 if args.photometric else 0.0)
     device = args.device
     seeds = [31327077] + list(range(1, args.frames))
     if device == "cuda":
@@ -68,15 +76,18 @@ def main(argv=None):
             raise SystemExit("no CUDA device (use --device cpu for a rehearsal)")
         card = card_name_and_power()
         fk.build_library()
-        frames = synthetic_frames(seeds, device)
-        cfg = opt.OptimizationConfig(kernel_box_coarse=not args.residual_coarse)
+        frames = synthetic_frames(seeds, device, with_images=args.photometric)
+        cfg = opt.OptimizationConfig(kernel_box_coarse=not args.residual_coarse, **photometric)
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     else:
         card = "cpu (no device metric)"
         frames = synthetic_frames([0] + seeds[1:], device, num_views=2, image_size=(32, 48),
-                                  num_instances=3, max_instances=3)
+                                  num_instances=3, max_instances=3,
+                                  with_images=args.photometric)
         cfg = opt.OptimizationConfig(num_steps=40, warmup_steps=10, num_rays=16, num_samples=6,
-                                     kernel_box_coarse=not args.residual_coarse)
+                                     kernel_box_coarse=not args.residual_coarse,
+                                     surface_num_rays=8, surface_num_iterations=20,
+                                     **photometric)
         activities = [ProfilerActivity.CPU]
     print(card, flush=True)
     if args.frames == 1:
@@ -114,7 +125,8 @@ def main(argv=None):
                      f"{launches:.0f} kernel launches/step" if device == "cuda"
                      else "device busy not measured")
         print(f"[profile] {phase} (steps {first + 3}-{first + 2 + args.wall_steps}), "
-              f"F={args.frames}: wall {wall:.2f} ms/step unprofiled "
+              f"F={args.frames}, photometric weight {cfg.photometric_weight}: "
+              f"wall {wall:.2f} ms/step unprofiled "
               f"({wall / args.frames:.2f} per frame-step); {busy_text}; on {card}", flush=True)
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    device {e.self_device_time_total / per_step:8.3f} ms/step "

@@ -17,8 +17,9 @@
 // reverse with respect to the position (K1/K4a), run the value forward with
 // one tangent along the ray as a second column block of its layer products
 // (K3/K4b), and, for the backward kernel, run the reverse sweep of the
-// one-tangent forward. The per-point work is scalar f32 per thread, and the
-// functions compile for the host too (without nvcc), so that the math is
+// one-tangent forward; the sphere tracer's march (sphere_trace.cu) steps
+// rays by the value forward alone. The per-point work is scalar f32 per
+// thread, and the functions compile for the host too (without nvcc), so that the math is
 // checked against the PyTorch twin on a machine without a GPU
 // (tests/test_torch_kernels.py).
 #pragma once
@@ -42,6 +43,11 @@ constexpr int kWeights = 1617;    // flattened MLP weights per instance
 constexpr int kGeo = 15;          // dloc 3 + drot 9 + dhalf 3
 constexpr int kParams = kWeights + kGeo;  // per-instance cotangent row
 constexpr int kGroup = 8;         // instances whose weights share memory
+
+// array extent for K tangents: K = 0 (the value forward alone) keeps one
+// unused slot, since C++ has no arrays of extent 0
+template <int K>
+constexpr int kTangentSlots = K > 0 ? K : 1;
 
 // offset of layer l's [out][in + 1] block in the flattened weights
 VSRD_HD constexpr int layer_offset(int l) {
@@ -69,11 +75,11 @@ struct BoxEval {
   float o, d;
   int jmax;
   float gate;
-  float tq[K][3], to[K], td[K];
+  float tq[kTangentSlots<K>][3], to[kTangentSlots<K>], td[kTangentSlots<K>];
 
   // tl[j][c]: d local_c along tangent j
   VSRD_HD BoxEval(const float x[3], const float* loc, const float* rot,
-                  const float* half, const float tl[K][3]) {
+                  const float* half, const float (*tl)[3]) {
     for (int k = 0; k < 3; ++k) rel[k] = x[k] - loc[k];
     for (int c = 0; c < 3; ++c) {
       l[c] = rel[0] * rot[c] + rel[1] * rot[3 + c] + rel[2] * rot[6 + c];
@@ -98,9 +104,8 @@ struct BoxEval {
 // LayerNorm (no affine) of h with tangents th; y = (h - mean) istd and
 // ty = istd (tc - y P), tc = th - mean(th), P = mean(y tc).
 template <int K>
-VSRD_HD void layer_norm_fwd(const float h[kHid], const float th[K][kHid],
-                            float y[kHid], float tc[K][kHid], float ty[K][kHid],
-                            float& istd) {
+VSRD_HD void layer_norm_fwd(const float h[kHid], const float (*th)[kHid], float y[kHid],
+                            float (*tc)[kHid], float (*ty)[kHid], float& istd) {
   float mean = 0.f;
   for (int i = 0; i < kHid; ++i) mean += h[i];
   mean *= 1.f / kHid;
@@ -136,28 +141,50 @@ VSRD_HD void enc_pair(float sym, int k, float& cs, float& sn) {
 #endif
 }
 
+// x / scale as one product and one fma: 1 / scale split into hi = fl(1 /
+// scale) and lo = (1 - hi scale) / scale, the fma adding x lo to the exact
+// x hi before it rounds, so the result is the division's. x hi alone would
+// scale every encoding phase by one relative error (2.2e-8 at scale 100),
+// which the top frequency and a union with no valid instance carry into
+// u_dot (tests/test_torch_kernels.py, the smoke frame with no valid
+// instance: 1.9e-4 of scale against the float64 twin, 8.7e-5 with this).
+struct Scaler {
+  float hi, lo;
+  VSRD_HD explicit Scaler(float scale) : hi(1.f / scale), lo(fmaf(-hi, scale, 1.f) / scale) {}
+  VSRD_HD float operator()(float x) const { return fmaf(x, hi, x * lo); }
+};
+
+// x / scale by the rounded reciprocal (K1 and K2's encoding) or by Scaler
+// (K3's and the sphere tracer's)
+VSRD_HD float scaled(float inv_scale, float x) { return x * inv_scale; }
+VSRD_HD float scaled(const Scaler& inv, float x) { return inv(x); }
+
 // One instance's distance d and K directional derivatives td, for the
 // tangent seeds tl (instance frame). W: the instance's 1617 weights, or
-// nullptr for the box-only phase.
-template <int K>
+// nullptr for the box-only phase. K = 0 is the value forward alone (the
+// sphere tracer's), with tl and td unread. inv: the encoding's 1 / scale,
+// a float or a Scaler.
+template <int K, class Inv>
 VSRD_HD float instance_forward(const float x[3], const float* loc, const float* rot,
-                               const float* half, const float* W, float inv_scale,
-                               const float tl[K][3], float td[K]) {
+                               const float* half, const float* W, const Inv& inv,
+                               const float (*tl)[3], float* td) {
+  constexpr int KS = kTangentSlots<K>;
   BoxEval<K> box(x, loc, rot, half, tl);
   float d = box.d;
   for (int j = 0; j < K; ++j) td[j] = box.td[j];
   if (W == nullptr) return d;
 
-  const float sym[3] = {fabsf(box.l[0]) * inv_scale, box.l[1] * inv_scale, box.l[2] * inv_scale};
-  float tsym[K][3];
+  const float sym[3] = {scaled(inv, fabsf(box.l[0])), scaled(inv, box.l[1]),
+                        scaled(inv, box.l[2])};
+  float tsym[KS][3];
   for (int j = 0; j < K; ++j) {
-    tsym[j][0] = box.s[0] * tl[j][0] * inv_scale;
-    tsym[j][1] = tl[j][1] * inv_scale;
-    tsym[j][2] = tl[j][2] * inv_scale;
+    tsym[j][0] = scaled(inv, box.s[0] * tl[j][0]);
+    tsym[j][1] = scaled(inv, tl[j][1]);
+    tsym[j][2] = scaled(inv, tl[j][2]);
   }
 
   // layer 0: encoding channels are produced and consumed one pair at a time
-  float h[kHid], th[K][kHid];
+  float h[kHid], th[KS][kHid];
   for (int o = 0; o < kHid; ++o) {
     h[o] = W[o * (kEnc + 1) + kEnc];
     for (int j = 0; j < K; ++j) th[j][o] = 0.f;
@@ -167,7 +194,7 @@ VSRD_HD float instance_forward(const float x[3], const float* loc, const float* 
       float cs, sn;
       enc_pair(sym[dim], k, cs, sn);
       const float f = frequency(k);
-      float txc[K], txs[K];
+      float txc[KS], txs[KS];
       for (int j = 0; j < K; ++j) {
         const float tf = f * tsym[j][dim];
         txc[j] = -sn * tf;
@@ -183,11 +210,11 @@ VSRD_HD float instance_forward(const float x[3], const float* loc, const float* 
   }
 
   // layers 1..4: LayerNorm + GELU, then Linear
-  float raw = 0.f, traw[K];
+  float raw = 0.f, traw[KS];
   for (int l = 1; l <= 4; ++l) {
-    float y[kHid], tc[K][kHid], ty[K][kHid], istd;
+    float y[kHid], tc[KS][kHid], ty[KS][kHid], istd;
     layer_norm_fwd<K>(h, th, y, tc, ty, istd);
-    float a[kHid], ta[K][kHid];
+    float a[kHid], ta[KS][kHid];
     for (int i = 0; i < kHid; ++i) {
       const Gelu g(y[i]);
       a[i] = y[i] * g.cdf;
@@ -198,7 +225,7 @@ VSRD_HD float instance_forward(const float x[3], const float* loc, const float* 
     const int out = l < 4 ? kHid : 1;
     for (int o = 0; o < out; ++o) {
       float acc = Wl[o * (kHid + 1) + kHid];
-      float tacc[K];
+      float tacc[KS];
       for (int j = 0; j < K; ++j) tacc[j] = 0.f;
       for (int i = 0; i < kHid; ++i) {
         const float wv = Wl[o * (kHid + 1) + i];
@@ -571,19 +598,6 @@ VSRD_HD float box_dir(const BoxGrad& box, const float v[3], const float* rot, fl
   td = box.gl[0] * tl[0] + box.gl[1] * tl[1] + box.gl[2] * tl[2];
   return box.d;
 }
-
-// x / scale as one product and one fma: 1 / scale split into hi = fl(1 /
-// scale) and lo = (1 - hi scale) / scale, the fma adding x lo to the exact
-// x hi before it rounds, so the result is the division's. x hi alone would
-// scale every encoding phase by one relative error (2.2e-8 at scale 100),
-// which the top frequency and a union with no valid instance carry into
-// u_dot (tests/test_torch_kernels.py, the smoke frame with no valid
-// instance: 1.9e-4 of scale against the float64 twin, 8.7e-5 with this).
-struct Scaler {
-  float hi, lo;
-  VSRD_HD explicit Scaler(float scale) : hi(1.f / scale), lo(fmaf(-hi, scale, 1.f) / scale) {}
-  VSRD_HD float operator()(float x) const { return fmaf(x, hi, x * lo); }
-};
 
 // a = GELU(y), y = LayerNorm(h) (no affine), and its tangent ta along th:
 // ty = istd (tc - y mean(y tc)), tc = th - mean(th), ta = (Phi(y) + y phi(y)) ty.
@@ -1011,6 +1025,177 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
     }
     geo[k] -= rl;
   }
+}
+
+// ---- Sphere tracing (sphere_trace.cu) ----
+//
+// The gradient-stopped march of renderer.sphere_tracing, ray by ray. The
+// distance it steps by is the hard union, the least d_i over the valid
+// instances (NaN if a d_i is NaN, as argmin picks a NaN first; FLT_MAX when
+// no instance is valid), or with tau > 0 the softmin union. d_i is the value
+// forward instance_forward<0>, its encoding dividing by the scale as the
+// twin does (Scaler: a rounded 1 / scale moves every phase by one relative
+// error, which a march can turn into a step more or less). W: the scene's
+// N x 1617 weights, or nullptr for box only. A union is accumulated over a subset of the instances
+// (part), such subsets are merged (merge), and the merged whole gives the
+// distance (finish): on the host over all instances at once, on the card
+// over each lane's share of a ray's instances.
+struct UnionPart {
+  float mx, z, sd;  // softmin: the max logit, sum e, sum e d; hard: sd is the min
+};
+
+struct SceneField {
+  int n;
+  const float *loc, *rot, *half, *valid, *W;
+  bool any_valid;
+  Scaler inv;
+  float tau;
+
+  VSRD_HD float distance(const float x[3], int i) const {
+    return instance_forward<0>(x, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                               W ? W + i * kWeights : nullptr, inv, nullptr, nullptr);
+  }
+
+  // the union over the instances first, first + stride, ...
+  VSRD_HD UnionPart part(const float x[3], int first, int stride) const {
+    UnionPart p{-INFINITY, 0.f, tau > 0.f ? 0.f : 3.402823466e+38f};
+    for (int i = first; i < n; i += stride) {
+      if (tau > 0.f) {
+        if (!instance_active(valid[i], any_valid)) continue;
+        const float d = distance(x, i), l = union_logit(d, valid[i], tau);
+        if (l > p.mx) {
+          const float sc = expf(p.mx - l);
+          p.z *= sc;
+          p.sd *= sc;
+          p.mx = l;
+        }
+        const float e = expf(l - p.mx);
+        p.z += e;
+        p.sd += e * d;
+      } else if (valid[i] > 0.5f) {
+        const float d = distance(x, i);
+        if (d != d || d < p.sd) p.sd = d;  // a NaN stays: d < NaN is false
+      }
+    }
+    return p;
+  }
+
+  VSRD_HD UnionPart merge(const UnionPart& a, const UnionPart& b) const {
+    if (tau > 0.f) {
+      const float m = fmaxf(a.mx, b.mx);
+      const float ea = a.mx == -INFINITY ? 0.f : expf(a.mx - m);
+      const float eb = b.mx == -INFINITY ? 0.f : expf(b.mx - m);
+      return {m, a.z * ea + b.z * eb, a.sd * ea + b.sd * eb};
+    }
+    return {a.mx, 0.f, (a.sd != a.sd || b.sd != b.sd) ? NAN : fminf(a.sd, b.sd)};
+  }
+
+  VSRD_HD float finish(const UnionPart& p) const { return tau > 0.f ? p.sd / p.z : p.sd; }
+
+  VSRD_HD float operator()(const float x[3]) const { return finish(part(x, 0, 1)); }
+};
+
+// One ray of the march: its position, whether it is in the foreground (its
+// origin finite, inside the bounding sphere) and whether it converged.
+struct TraceRay {
+  float p[3];
+  bool fg, conv;
+};
+
+// a ray that keeps its frame's march going
+VSRD_HD bool trace_active(const TraceRay& s) { return s.fg && !s.conv; }
+
+// x + v sd, rounded as the twin rounds it: the product, then the sum
+VSRD_HD float step_along(float x, float v, float sd) {
+#if defined(__CUDA_ARCH__)
+  return __fadd_rn(x, __fmul_rn(v, sd));
+#else
+  return x + v * sd;
+#endif
+}
+
+// One trip of the JAX while_loop's body for one ray: sd at the position;
+// the move by sd along v if the ray was active BEFORE this trip; the sphere
+// test (radius > 0) after the move; only then conv = |sd| < crit. So a ray
+// moves once more after it first reads |sd| < crit.
+template <class Field>
+VSRD_HD void trace_trip(const Field& field, const float v[3], float radius, float crit,
+                        TraceRay& s) {
+  const float sd = field(s.p);
+  if (trace_active(s))
+    for (int c = 0; c < 3; ++c) s.p[c] = step_along(s.p[c], v[c], sd);
+  if (radius > 0.f && s.fg) s.fg = sqrtf(s.p[0] * s.p[0] + s.p[1] * s.p[1] + s.p[2] * s.p[2]) < radius;
+  s.conv = fabsf(sd) < crit;
+}
+
+// Where a ray's march stopped. From trip t_in on the ray is inactive for
+// good, at the position and foreground of s, with conv_in at trip t_in and
+// conv_after at every later trip (an inactive ray no longer moves, so one
+// more trip re-evaluates its conv and then nothing changes). t_in =
+// num_iterations when the ray was still changing at the cap.
+struct TraceRecord {
+  TraceRay s;
+  int t_in;
+  bool conv_in, conv_after;
+};
+
+// The march of one ray from its start s (trip 0), trip by trip, until the
+// ray is inactive for good or num_iterations trips are made. mark(t) for
+// every trip t < num_iterations at whose start the ray is active: the frame
+// runs its t-th trip exactly when some ray marks t. A ray may turn active
+// again (an inactive converged ray whose re-evaluated |sd| reaches crit), so
+// its record names only its last inactive run.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <class Field, class Mark>
+VSRD_HD TraceRecord march_ray(const Field& field, TraceRay s, const float v[3],
+                              int num_iterations, float radius, float crit, Mark& mark) {
+  TraceRecord rec;
+  rec.t_in = 0;
+  rec.conv_in = s.conv;
+  for (int t = 0; t < num_iterations; ++t) {
+    const bool was = trace_active(s);
+    if (was) mark(t);
+    trace_trip(field, v, radius, crit, s);
+    const bool now = trace_active(s);
+    if (!was && !now) {  // inactive at t and t + 1: nothing changes after t + 1
+      rec.s = s;
+      rec.conv_after = s.conv;
+      return rec;
+    }
+    if (!now) {
+      rec.t_in = t + 1;
+      rec.conv_in = s.conv;
+    }
+  }
+  rec.s = s;
+  rec.t_in = num_iterations;
+  rec.conv_in = rec.conv_after = s.conv;
+  return rec;
+}
+
+// The trip count of a frame: its first trip that no ray marked, or
+// num_iterations.
+VSRD_HD int frame_trips(const unsigned char* marked, int num_iterations) {
+  for (int t = 0; t < num_iterations; ++t)
+    if (!marked[t]) return t;
+  return num_iterations;
+}
+
+// The ray's state after its frame's T trips: from the record when T falls
+// in its last inactive run, else (T inside an earlier inactive spell, which
+// only a ray that turned active again has) by replaying T trips from s0.
+template <class Field>
+VSRD_HD TraceRay finish_ray(const Field& field, TraceRay s0, const float v[3],
+                            const TraceRecord& rec, int T, float radius, float crit) {
+  if (T >= rec.t_in) {
+    TraceRay s = rec.s;
+    s.conv = T == rec.t_in ? rec.conv_in : rec.conv_after;
+    return s;
+  }
+  for (int t = 0; t < T; ++t) trace_trip(field, v, radius, crit, s0);
+  return s0;
 }
 
 }  // namespace vsrd

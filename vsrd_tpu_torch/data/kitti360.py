@@ -8,10 +8,12 @@ which aligns the source views' instances to the target's instance ids and
 pads them into the arrays of ``pipeline.frame.build_frame_data``. Source
 frames load on a thread pool (the host work is file reads and native code).
 
-No pixels are decoded: the labeling path uses the masks only (the
-photometric branch, the only reader of pixels, is not ported), so each
-sample carries its image's size, read from the PNG's IHDR header, in place
-of the image.
+Each sample carries its image's size, read from the PNG's IHDR header. The
+pixels are decoded only with ``read_images`` (``data/png.py``, no PIL), for
+the photometric branch, their only reader: the driver sets it when the
+photometric loss weight is positive, as the JAX driver passes images only
+then. The image is float32 in [0, 1], ``[H, W, C]``, and the transforms
+resize it bilinearly with the masks.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import rle
+from . import png, rle
 from .transforms import (
     BoxGenerator,
     BoxSizeFilter,
@@ -88,6 +90,7 @@ class KITTI360Dataset:
     target_transforms: list = None
     source_transforms: list = None
     rectification: bool = True
+    read_images: bool = False
 
     def __post_init__(self):
         self.image_filenames = []
@@ -160,6 +163,8 @@ class KITTI360Dataset:
         annotation.setdefault("instance_ids", np.empty((0,), np.int64))
 
         sample = dict(annotation, image_size=(h, w), filename=image_filename)
+        if self.read_images:
+            sample["image"] = png.read_image(image_filename)
         for transform in transforms:
             sample = transform(sample)
         return sample

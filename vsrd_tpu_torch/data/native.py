@@ -41,6 +41,27 @@ def _build(source: Path, target: Path) -> None:
         tmp.unlink(missing_ok=True)
 
 
+def build_and_load(source: Path, stem: str) -> ctypes.CDLL:
+    """Compile the host C++ ``source`` with g++ into the port's build
+    directory as ``lib<stem>_<hash of the source>.so`` (once per source
+    content) and load it. Raises ``OSError`` or ``SubprocessError``."""
+    from ..rendering.field_kernels import build_dir
+
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    target = out_dir / f"lib{stem}_{digest}.so"
+    if not target.exists():
+        _build(source, target)
+    return ctypes.CDLL(str(target))
+
+
+def describe(error: Exception) -> str:
+    """A build or load failure, with the compiler's output."""
+    detail = getattr(error, "stderr", "") or ""
+    return f"{type(error).__name__}: {error} {detail}".strip()
+
+
 def load():
     """The loaded library, or None (the numpy versions are used); the reason
     a build or load failed is kept in ``build_error``."""
@@ -51,20 +72,10 @@ def load():
         if _LIB is not None or _TRIED:
             return _LIB
         _TRIED = True
-        from ..rendering.field_kernels import build_dir
-
-        source = source_path()
         try:
-            digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-            out_dir = build_dir()
-            out_dir.mkdir(parents=True, exist_ok=True)
-            target = out_dir / f"libvsrd_native_{digest}.so"
-            if not target.exists():
-                _build(source, target)
-            lib = ctypes.CDLL(str(target))
+            lib = build_and_load(source_path(), "vsrd_native")
         except (OSError, subprocess.SubprocessError) as error:
-            detail = getattr(error, "stderr", "") or ""
-            build_error = f"{type(error).__name__}: {error} {detail}".strip()
+            build_error = describe(error)
             return None
 
         i64, f32p = ctypes.c_int64, ctypes.POINTER(ctypes.c_float)

@@ -1,0 +1,100 @@
+"""PNG decoding for the photometric branch, without PIL or cv2.
+
+Reads 8-bit, non-interlaced greyscale, greyscale + alpha, RGB and RGBA PNGs
+as ``PIL.Image.open`` + ``np.asarray`` give them (``[H, W]`` for grey, else
+``[H, W, C]``, uint8): the IDAT chunks are inflated with the standard
+library's ``zlib``, then the five scanline filters are reversed by
+``png_filters.cpp``, compiled with g++ on first use into the port's build
+directory as ``data/native.py`` compiles its source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import subprocess
+import threading
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+from . import native
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}      # color type -> samples per pixel
+_LOCK = threading.Lock()
+_LIB = None
+
+
+def _load():
+    """The compiled ``png_unfilter``; raises ``RuntimeError`` with the
+    compiler's output where ``png_filters.cpp`` cannot be built."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            try:
+                lib = native.build_and_load(Path(__file__).with_name("png_filters.cpp"),
+                                            "vsrd_png")
+            except (OSError, subprocess.SubprocessError) as error:
+                raise RuntimeError("data/png_filters.cpp could not be built: "
+                                   f"{native.describe(error)}") from error
+            i64, u8p = ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)
+            lib.png_unfilter.argtypes = [u8p, i64, i64, i64, u8p]
+            lib.png_unfilter.restype = i64
+            _LIB = lib
+        return _LIB
+
+
+def unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Reverse the scanline filters of ``height`` inflated rows of ``stride``
+    bytes (each after its filter byte): ``[height, stride]`` uint8."""
+    raw = np.frombuffer(data, np.uint8)
+    if raw.size != height * (stride + 1):
+        raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
+                         f"{height * (stride + 1)}")
+    lib = _load()
+    raw = np.ascontiguousarray(raw)
+    out = np.empty((height, stride), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    bad = lib.png_unfilter(raw.ctypes.data_as(u8p), height, stride, bpp, out.ctypes.data_as(u8p))
+    if bad:
+        raise ValueError(f"PNG row {bad - 1} has an unknown filter type")
+    return out
+
+
+def read_png(filename: str) -> np.ndarray:
+    """The pixels of an 8-bit non-interlaced PNG, uint8, shaped as PIL
+    gives them."""
+    with open(filename, "rb") as file:
+        blob = file.read()
+    if blob[:8] != SIGNATURE:
+        raise ValueError(f"{filename} is not a PNG file")
+    offset, header, idat = 8, None, []
+    while offset + 8 <= len(blob):
+        length, kind = struct.unpack(">I4s", blob[offset:offset + 8])
+        body = blob[offset + 8:offset + 8 + length]
+        offset += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{filename} has no IHDR chunk")
+    width, height, depth, color, _, _, interlace = header
+    if depth != 8 or color not in CHANNELS or interlace != 0:
+        raise ValueError(f"{filename}: only 8-bit non-interlaced grey, grey+alpha, RGB and "
+                         f"RGBA PNGs are read (bit depth {depth}, color type {color}, "
+                         f"interlace {interlace})")
+    channels = CHANNELS[color]
+    pixels = unfilter(zlib.decompress(b"".join(idat)), height, width * channels, channels)
+    return pixels.reshape(height, width) if channels == 1 else pixels.reshape(
+        height, width, channels)
+
+
+def read_image(filename: str) -> np.ndarray:
+    """A PNG as float32 in [0, 1], as the JAX package reads it
+    (``np.asarray(Image.open(filename)) / 255``)."""
+    return read_png(filename).astype(np.float32) / 255.0

@@ -8,7 +8,8 @@ here each is written out so that it gives OpenCV's pixels exactly, because
 the soft masks that come out are the optimization's only supervision:
 
 * ``resize_nearest``: ``cv2.resize(..., INTER_NEAREST)``, source pixel
-  ``floor(x * src / dst)``;
+  ``floor(x * src / dst)``; ``resize_linear`` (the image, read only for the
+  photometric branch): ``cv2.resize(..., INTER_LINEAR)`` of a float image;
 * ``external_contours``: ``cv2.findContours(RETR_EXTERNAL,
   CHAIN_APPROX_SIMPLE)``, the outer borders of the 8-connected components
   that touch the outer background, each traced by Suzuki-Abe border
@@ -22,9 +23,10 @@ the soft masks that come out are the optimization's only supervision:
 Transforms are callables taking and returning a sample dict with keys
 ``masks [N, H, W] f32``, ``labels [N]``, ``boxes_3d [N, 8, 3]``,
 ``instance_ids [N]``, ``intrinsic_matrix``, ``extrinsic_matrix`` and
-``image_size (H, W)``, plus the keys they add. No pixels of the image are
-decoded on this path, so the sample carries the image's size instead of
-the image. The augmentations for the detector leg are not ported.
+``image_size (H, W)``, plus the keys they add, and ``image [H, W, C] f32``
+when the image was read (the photometric branch reads it; the labeling
+path otherwise carries only its size). The augmentations for the detector
+leg are not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +49,44 @@ def resize_nearest(array: np.ndarray, size) -> np.ndarray:
     cols = np.minimum(np.floor(np.arange(out_w) * (1.0 / (out_w / in_w))).astype(np.int64),
                       in_w - 1)
     return array[rows[:, None], cols[None, :]]
+
+
+def _linear_taps(src: int, dst: int):
+    """OpenCV's bilinear taps along one axis: source index pairs and their
+    float32 weights, from the pixel-centre map ``(d + 0.5) src/dst - 0.5``
+    in double precision (its fraction rounded to float32), clamped to the
+    first and last pixel."""
+    f = (np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5
+    s = np.floor(f).astype(np.int64)
+    f = (f - s).astype(np.float32)
+    low, high = s < 0, s >= src - 1
+    f[low | high] = 0.0
+    s[low] = 0
+    s[high] = src - 1
+    return s, np.minimum(s + 1, src - 1), np.float32(1.0) - f, f
+
+
+def resize_linear(image: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(image, (W, H), interpolation=cv2.INTER_LINEAR)`` of a
+    float32 image ``[H, W(, C)]``: each source row interpolated along x,
+    then the rows along y, in float32, as OpenCV does; an exact halving in
+    both axes is OpenCV's 2x2 mean (it takes INTER_AREA's fast path there);
+    the same size is a copy."""
+    out_h, out_w = int(size[0]), int(size[1])
+    in_h, in_w = image.shape[:2]
+    image = np.asarray(image, np.float32)
+    if (in_h, in_w) == (out_h, out_w):
+        return image.copy()
+    if (in_h, in_w) == (2 * out_h, 2 * out_w):
+        top, bottom = image[0::2], image[1::2]
+        return ((top[:, 0::2] + top[:, 1::2]) + bottom[:, 0::2] + bottom[:, 1::2]) * np.float32(
+            0.25)
+    x0, x1, a0, a1 = _linear_taps(in_w, out_w)
+    y0, y1, b0, b1 = _linear_taps(in_h, out_h)
+    extra = (None,) * (image.ndim - 2)
+    rows = image[:, x0] * a0[(slice(None), *extra)] + image[:, x1] * a1[(slice(None), *extra)]
+    return (rows[y0] * b0[(slice(None), None, *extra)]
+            + rows[y1] * b1[(slice(None), None, *extra)])
 
 
 def _trace_outer_border(flat: bytes, width: int, start: int) -> list[int]:
@@ -201,8 +241,8 @@ def fill_polygon(shape, polygon: np.ndarray) -> np.ndarray:
 
 
 class Resizer:
-    """Resize the masks (nearest) to ``image_size`` and rescale K. The
-    image's size changes with them; the image itself is not decoded here."""
+    """Resize the image (bilinear, when the sample holds it) and the masks
+    (nearest) to ``image_size`` and rescale K."""
 
     def __init__(self, image_size, image_interp_mode="bilinear", masks_interp_mode="nearest"):
         if masks_interp_mode != "nearest":
@@ -214,6 +254,8 @@ class Resizer:
         sy = self.image_size[0] / h
         sx = self.image_size[1] / w
         sample = dict(sample, image_size=self.image_size)
+        if sample.get("image") is not None:
+            sample["image"] = resize_linear(sample["image"], self.image_size)
         masks = sample.get("masks")
         if masks is not None:
             if len(masks):

@@ -6,7 +6,10 @@ matches them to the target view's ground-truth boxes on the device,
 computes the DIoU and smooth-L1 projection losses, renders Gumbel-top-k
 sampled rays through the softmin union of the box SDFs (plus, after
 warmup, each instance's residual field from the hypernetwork) with
-hierarchical NeuS, and adds the silhouette BCE and the eikonal loss.
+hierarchical NeuS, and adds the silhouette BCE and the eikonal loss; with
+``photometric_weight > 0``, in the residual phase, on frames with images,
+also the multi-view photometric loss of sphere-traced surfels
+(``pipeline/photometric.py``, the sphere-trace kernel on the card).
 
 The field is evaluated by the kernels of ``rendering/field_kernels.py``
 (K1/K2 for the fine pass, K3 for the box-only coarse pass); on CPU
@@ -35,7 +38,8 @@ import torch
 
 from ..models import box_parameters, hyper_field
 from ..ops import geometry, iou2d, iou3d, matching, sampling
-from ..rendering import field_kernels, renderer
+from ..rendering import field_kernels, renderer, scene
+from . import photometric
 from .frame import FrameData, ray_directions_at
 
 
@@ -75,7 +79,9 @@ class OptimizationConfig:
     l1_projection_weight: float = 1.0
     silhouette_weight: float = 1.0
     eikonal_weight: float = 0.01
-    photometric_weight: float = 0.0   # the photometric branch is not ported
+    # the photometric branch runs when > 0 in the residual phase on frames
+    # with gray_images (every shipped config sets 0.0)
+    photometric_weight: float = 0.0
     # surface rendering (photometric branch)
     surface_num_rays: int = 100
     surface_num_iterations: int = 1000
@@ -264,20 +270,22 @@ def _binary_cross_entropy(probs, targets, epsilon=1e-6):
 
 def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
                  use_rdf: bool, generator: torch.Generator | None = None,
-                 ray_indices: torch.Tensor | None = None):
+                 ray_indices: torch.Tensor | None = None,
+                 surface_indices: torch.Tensor | None = None):
     """One forward pass: projection + silhouette (+ eikonal) losses.
 
     ``use_rdf`` selects the post-warmup phase (residual field + eikonal).
     ``ray_indices [(F,) R]`` overrides the per-step ray draw with flat
     (view, y, x) pixel indices, so that two implementations can render
-    identical rays. Returns ``(total, aux)``.
+    identical rays; ``surface_indices [(F,) R]`` likewise overrides the
+    photometric branch's draw of target-view pixels (``y * W + x``), which
+    otherwise comes from ``generator`` after the render's draws. Returns
+    ``(total, aux)``.
 
     Stacked frames (a leading frame axis on ``frame`` and ``params``) give
     a per-frame ``total [F]``: every reduction keeps the frame axis, and
     each frame's params only reach its own loss.
     """
-    if cfg.photometric_weight > 0.0:
-        raise NotImplementedError("the photometric branch is not ported")
     if cfg.kernel_group_skip:
         raise NotImplementedError("per-tile instance-group skipping is not ported")
     n = frame.max_instances
@@ -376,7 +384,20 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         losses["eikonal_loss"] = torch.mean(torch.square(norms - 1.0), dim=(-2, -1))
     else:
         losses["eikonal_loss"] = zero
-    losses["photometric_loss"] = zero
+    if cfg.photometric_weight > 0.0 and use_rdf and frame.gray_images is not None:
+        hard = scene.SceneParams(locations, rotations, half_dims, frame.valid, field_weights)
+        losses["photometric_loss"], _ = photometric.photometric_loss(
+            frame, hard, generator,
+            num_rays=cfg.surface_num_rays,
+            num_iterations=cfg.surface_num_iterations,
+            convergence_criteria=cfg.surface_convergence_criteria,
+            bounding_radius=cfg.surface_bounding_radius,
+            patch_size=cfg.surface_patch_size,
+            local_idx=surface_indices,
+            position_scale=scale,
+        )
+    else:
+        losses["photometric_loss"] = zero
 
     total = (
         cfg.iou_projection_weight * losses["iou_projection_loss"]

@@ -18,7 +18,8 @@ def stack_frames(frames: list[FrameData]) -> FrameData:
     """Stack equally shaped FrameData along a new leading frame axis.
 
     ``target_index`` becomes an int64 tensor ``[F]`` on the frames' device;
-    ``gray_images`` stays ``None`` when no frame has them."""
+    ``gray_images`` stays ``None`` when no frame has them, and a mix of
+    frames with and without them is refused."""
     first = frames[0]
     if any(f.image_size != first.image_size for f in frames):
         raise ValueError("stacked frames must share one image size")
@@ -31,6 +32,8 @@ def stack_frames(frames: list[FrameData]) -> FrameData:
             fields[field.name] = torch.as_tensor([int(v) for v in values], device=first.device)
         elif field.name == "gray_images" and all(v is None for v in values):
             fields[field.name] = None
+        elif field.name == "gray_images" and any(v is None for v in values):
+            raise ValueError("stacked frames must all have gray_images or all lack them")
         else:
             fields[field.name] = torch.stack(values)
     return FrameData(**fields)

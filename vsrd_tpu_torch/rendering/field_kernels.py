@@ -15,7 +15,13 @@ Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
 * K3 ``field_dir_forward``: u, w and the derivative of u along a
   per-point direction, forward only (``csrc/dir_forward.cu``; TPU
   ``_dir_fwd_kernel``), the value and its tangent as two column blocks of
-  one set of layer products on the tensor cores in 3xTF32.
+  one set of layer products on the tensor cores in 3xTF32;
+* ``sphere_trace``: the gradient-stopped march of sphere tracing through
+  the hard (or softmin) union of a scene, for F frames of R rays in one
+  call (``csrc/sphere_trace.cu``; the JAX package runs it as a
+  ``lax.while_loop``, not a Pallas kernel), a group of lanes per ray, one
+  per instance; its plain twin is ``renderer.march_loop``, which
+  ``scene.march`` runs on CPU tensors.
 
 Each launcher also takes F stacked frames: positions ``[F, P, 3]`` (and
 directions and cotangents with the same leading axis) with ``[F, N, ...]``
@@ -32,7 +38,8 @@ eager field, looped over frames for a leading frame axis); on CUDA tensors
 they launch the kernels or raise — there is no fallback. Each launcher
 counts its launches in ``<launcher>.launches`` and, of those, the ones
 with more than one frame (K4a/K4c/K4b) in ``<launcher>.batched_launches``
-and the ones with the residual field in ``<launcher>.rdf_launches``.
+and the ones with the residual field in ``<launcher>.rdf_launches``;
+``sphere_trace.soft_launches`` counts its launches with the softmin union.
 
 The kernels are compiled on first use with ``nvcc`` for ``sm_90a`` from
 ``csrc/`` into a plain-C shared library, loaded with ctypes; the same
@@ -146,9 +153,10 @@ def build_library() -> ctypes.CDLL:
     lib.vsrd_rev_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
     lib.vsrd_dir_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
     lib.vsrd_jv_assignment.argtypes = [i32, i32, ptr, ptr, ptr]   # ops/matching.py
+    lib.vsrd_sphere_trace.argtypes = [i32] * 4 + [ptr] * 8 + [f32] * 4 + [ptr] * 7
     for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward, lib.vsrd_fused_backward,
                lib.vsrd_fused_backward_tiles, lib.vsrd_rev_forward_info,
-               lib.vsrd_dir_forward_info, lib.vsrd_jv_assignment):
+               lib.vsrd_dir_forward_info, lib.vsrd_jv_assignment, lib.vsrd_sphere_trace):
         fn.restype = i32
     _library = lib
     return lib
@@ -173,7 +181,7 @@ def _prepare(positions, locations, rotations, half_dims, valid, weights, tempera
     (``()`` or ``(F,)``), the frame count, contiguous f32 views of
     ``positions``, ``extra``, locations, rotations, half_dims and valid,
     the weights' view (or ``None``) and the temperature as a 1-element
-    tensor."""
+    tensor (``None`` for ``temperature=None``)."""
     device = positions.device
     if device.type != "cuda":
         raise ValueError(f"the field kernels run on CUDA tensors, not {device}")
@@ -200,7 +208,8 @@ def _prepare(positions, locations, rotations, half_dims, valid, weights, tempera
     if p == 0 or n == 0 or n > 64 or not 1 <= frames <= 65535:
         raise ValueError("the kernels take 1 <= N <= 64 instances, P >= 1 points "
                          "and 1 <= F <= 65535 frames")
-    tau = torch.as_tensor(temperature, dtype=torch.float32, device=device).reshape(1)
+    tau = None if temperature is None else torch.as_tensor(
+        temperature, dtype=torch.float32, device=device).reshape(1)
     contig = [t.detach().contiguous() for t in (
         positions, *extra, locations, rotations, half_dims, valid)]
     w = None if weights is None else weights.detach().contiguous()
@@ -290,6 +299,52 @@ def field_dir_forward(positions, directions, locations, rotations, half_dims, va
     return u, wts, u_dot
 
 
+def sphere_trace(origins, directions, foreground, locations, rotations, half_dims, valid,
+                 weights, num_iterations: int, convergence_criteria: float,
+                 bounding_radius: float = 0.0, temperature=None,
+                 position_scale: float = 100.0):
+    """Launch the sphere-trace kernel: the march of ``[(F,) R]`` rays from
+    ``origins`` along ``directions`` ``[(F,) R, 3]``, starting in the
+    foreground where ``foreground [(F,) R]`` (bool) says, through the hard
+    union of ``[(F,) N, ...]`` boxes and weights (``None``: box only), or
+    through the softmin union at a float ``temperature``; each frame stops
+    on its own. ``bounding_radius`` 0 means no bounding sphere. Returns
+    ``(positions [(F,) R, 3], converged [(F,) R] bool, trips [F] int32,
+    evaluations [F, R] int32)``: the trips the JAX loop makes per frame, and
+    the field evaluations each ray's march made (its work)."""
+    lead, frames, (pos, dirs, loc, rot, half, val), w, _ = _prepare(
+        origins, locations, rotations, half_dims, valid, weights, None, extra=(directions,))
+    lib = build_library()
+    r, n = pos.shape[-2], loc.shape[-2]
+    if dirs.shape != pos.shape or foreground.shape != (*lead, r):
+        raise ValueError("directions [(F,) R, 3] and foreground [(F,) R] expected")
+    if foreground.dtype != torch.bool or foreground.device != pos.device:
+        raise ValueError("foreground is a bool tensor on the rays' device")
+    if num_iterations < 0:
+        raise ValueError("num_iterations >= 0 expected")
+    tau = 0.0 if temperature is None else float(temperature)
+    if temperature is not None and not tau > 0.0:
+        raise ValueError("a softmin union needs a positive temperature")
+    device = pos.device
+    fg = foreground.contiguous()
+    marked = torch.zeros(frames, max(num_iterations, 1), dtype=torch.uint8, device=device)
+    t_in = torch.empty(frames, r, dtype=torch.int32, device=device)
+    bits = torch.empty(frames, r, dtype=torch.uint8, device=device)
+    positions = torch.empty(*lead, r, 3, device=device)
+    converged = torch.empty(*lead, r, dtype=torch.bool, device=device)
+    trips = torch.empty(frames, dtype=torch.int32, device=device)
+    _check(lib.vsrd_sphere_trace(
+        frames, r, n, int(num_iterations), _ptr(pos), _ptr(dirs), _ptr(fg), _ptr(loc),
+        _ptr(rot), _ptr(half), _ptr(val), _ptr(w), float(position_scale), tau,
+        float(bounding_radius), float(convergence_criteria), _ptr(marked), _ptr(t_in),
+        _ptr(bits), _ptr(positions), _ptr(converged), _ptr(trips), _stream()),
+        "sphere_trace")
+    _count(sphere_trace, frames, w is not None)
+    if temperature is not None:
+        sphere_trace.soft_launches += 1
+    return positions, converged, trips, torch.clamp(t_in + 1, max=num_iterations)
+
+
 def _launch_info(fn, what: str, num_instances: int, rdf: bool) -> tuple[int, int, int]:
     threads, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     _check(fn(num_instances, int(rdf), ctypes.byref(threads), ctypes.byref(smem),
@@ -312,10 +367,11 @@ def dir_forward_info(num_instances: int, rdf: bool = True) -> tuple[int, int, in
 
 
 def reset_launch_counts():
-    for fn in (field_forward, field_backward, field_dir_forward):
+    for fn in (field_forward, field_backward, field_dir_forward, sphere_trace):
         fn.launches = 0
         fn.batched_launches = 0
         fn.rdf_launches = 0
+    sphere_trace.soft_launches = 0
 
 
 reset_launch_counts()

@@ -48,20 +48,20 @@ def split_field_layers(weights: torch.Tensor,
                        in_channels: int = 48,
                        out_channels_list: Sequence[int] = (16, 16, 16, 16),
                        final_channels: int = 1):
-    """Flattened per-instance weights ``[N, W]`` -> per-layer
-    ``[N, out, in + 1]`` tensors, with layer 0's input channels permuted
+    """Flattened per-instance weights ``[(F,) N, W]`` -> per-layer
+    ``[(F,) N, out, in + 1]`` tensors, with layer 0's input channels permuted
     into the (k, cos/sin, dim) order that ``encode`` produces."""
     sizes, num_neurons = field_layer_sizes(in_channels, out_channels_list, final_channels)
-    n = weights.shape[0]
+    lead = weights.shape[:-1]
     perm = torch.tensor(
         [*enc_permutation(in_channels // 6), in_channels], device=weights.device
     )
     layers = []
     offset = 0
     for index, ((c_in, c_out), count) in enumerate(zip(sizes, num_neurons)):
-        w = weights[:, offset : offset + count].reshape(n, c_out, c_in + 1)
+        w = weights[..., offset : offset + count].reshape(*lead, c_out, c_in + 1)
         if index == 0:
-            w = w[:, :, perm]
+            w = w[..., perm]
         layers.append(w)
         offset += count
     return tuple(layers)
@@ -72,29 +72,33 @@ def encode(local: torch.Tensor, position_scale: float, num_frequencies: int):
     ``[..., 6 * num_frequencies]`` in (k, cos/sin, dim) order."""
     sym = torch.cat([torch.abs(local[..., :1]), local[..., 1:]], dim=-1)
     sym = sym / position_scale
-    chunks = []
-    for k in range(num_frequencies):
-        phase = sym * (math.pi * (2.0 ** k))
-        chunks.append(torch.cos(phase))
-        chunks.append(torch.sin(phase))
-    return torch.cat(chunks, dim=-1)
+    # fl(pi) 2^k is fl(pi 2^k): the phases are the per-frequency products
+    frequencies = torch.exp2(torch.arange(num_frequencies, dtype=sym.dtype,
+                                          device=sym.device)) * math.pi
+    phase = sym[..., None, :] * frequencies[:, None]                 # [..., k, dim]
+    return torch.stack([torch.cos(phase), torch.sin(phase)], dim=-2).flatten(-3)
 
 
 def instance_distances(positions, locations, rotations, half_dims, layers,
                        position_scale: float = 100.0, num_frequencies: int = 8):
-    """Per-instance signed distances ``[P, N]`` at points ``[P, 3]``.
+    """Per-instance signed distances ``[(F,) P, N]`` at points ``[(F,) P,
+    3]``, with ``[(F,) N, ...]`` parameters for a leading frame axis.
 
     ``layers`` is the ``split_field_layers`` tuple, or ``None`` for the
     box-only warmup phase."""
     local = sdf_ops.into_instance_frame(positions, locations, rotations)  # [P, N, 3]
-    distances = sdf_ops.box_sdf(local, half_dims)                         # [P, N]
+    distances = sdf_ops.box_sdf(local, half_dims[..., None, :, :])        # [P, N]
     if layers is None:
         return distances
     x = encode(local, position_scale, num_frequencies)                     # [P, N, 48]
     for index, w_full in enumerate(layers):
         if index:
             x = F.gelu(layer_norm(x))
-        x = torch.einsum("pnc,noc->pno", x, w_full[..., :-1]) + w_full[..., -1]
+        if x.ndim == 3:
+            x = torch.einsum("pnc,noc->pno", x, w_full[..., :-1]) + w_full[..., -1]
+        else:
+            x = (torch.einsum("fpnc,fnoc->fpno", x, w_full[..., :-1])
+                 + w_full[..., None, :, :, -1])
     return distances + sdf_ops.residual_squash(x[..., 0])
 
 

@@ -32,13 +32,15 @@ def box_sdf(local: torch.Tensor, half_dimensions: torch.Tensor) -> torch.Tensor:
 
 
 def into_instance_frame(positions, locations, rotations):
-    """World points ``[P, 3]`` -> local frames ``[P, N, 3]``: (p - t) @ R,
-    written as the kernels' three multiply-adds."""
-    rel = positions[:, None, :] - locations[None]            # [P, N, 3]
+    """World points ``[(F,) P, 3]`` -> local frames ``[(F,) P, N, 3]``: (p -
+    t) @ R, written as the kernels' three multiply-adds; an optional
+    leading frame axis on the points and the ``[(F,) N, ...]`` parameters."""
+    rel = positions[..., :, None, :] - locations[..., None, :, :]   # [(F,) P, N, 3]
+    rot = rotations[..., None, :, :, :]                             # [(F,) 1, N, 3, 3]
     return (
-        rel[..., 0:1] * rotations[:, 0]
-        + rel[..., 1:2] * rotations[:, 1]
-        + rel[..., 2:3] * rotations[:, 2]
+        rel[..., 0:1] * rot[..., 0, :]
+        + rel[..., 1:2] * rot[..., 1, :]
+        + rel[..., 2:3] * rot[..., 2, :]
     )
 
 
@@ -51,6 +53,23 @@ def masked_softmin_union(distances, valid, temperature):
     logits = -distances / temperature + (valid - 1.0) * 1e30
     weights = torch.softmax(logits, dim=-1)
     return torch.sum(distances * weights, dim=-1), weights
+
+
+def masked_hard_union(distances, valid):
+    """Argmin union over the last (instance) axis of ``distances [..., N]``.
+
+    Padded instances (``valid`` bool or 0/1 float ``[..., N]``) read
+    ``finfo(f32).max``, ties go to the lowest index, as ``argmin`` does, and
+    the weights are one-hot, so that features gather as with the soft union.
+    A point with no valid instance gets ``finfo.max`` (no NaN): the masked
+    entries times their zero weights add 0. Returns ``(union [...], weights
+    [..., N])``.
+    """
+    big = torch.finfo(distances.dtype).max
+    masked = torch.where(valid.bool(), distances, big)
+    index = torch.argmin(masked, dim=-1, keepdim=True)
+    weights = torch.zeros_like(masked).scatter_(-1, index, 1.0)
+    return torch.sum(masked * weights, dim=-1), weights
 
 
 def residual_squash(raw: torch.Tensor) -> torch.Tensor:

@@ -294,6 +294,10 @@ def train(args):
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     dataset = make_dataset(config)
+    # pixels are decoded only for the photometric branch, their only reader
+    read_images = cfg.photometric_weight > 0.0
+    if read_images:
+        dataset.read_images = True
     shard = parallel.process_index() if args.shard is None else args.shard
     num_shards = parallel.process_count() if args.num_shards is None else args.num_shards
     indices = parallel.shard_indices(len(dataset), shard, num_shards)
@@ -344,7 +348,8 @@ def train(args):
             json.dump(config, file, indent=4)
 
         frame_kwargs = align_to_target(samples, max_instances=round_up_instances(num_instances))
-        frame = frame_mod.build_frame_data(None, **frame_kwargs, device=device)
+        images = [samples[rel]["image"] for rel in sorted(samples)] if read_images else None
+        frame = frame_mod.build_frame_data(images, **frame_kwargs, device=device)
         logger.info(f"[{image_filename}] loaded {frame.num_views} views at "
                     f"{frame.image_size[0]}x{frame.image_size[1]}, {num_instances} instances "
                     f"in bucket {frame.max_instances}: "

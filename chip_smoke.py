@@ -70,11 +70,32 @@ Phases (any failure exits non-zero):
    photometric loss after warmup, and the residual step's ms/step at weight
    0 and 1;
 12. renders: render_surface_mask (one sphere-trace launch over a view) and
-   render_instance_probabilities on frame 0, timed once each.
+   render_instance_probabilities on frame 0, timed once each;
+13. detector (its own ``[time]`` line): the JV kernel at the DETR loss's
+   shapes, [8, 50, 50] and [24, 50, 50] (8 images, 1 and 3 decoder levels),
+   against its twin entry for entry, on events and the host clock; DETR3D
+   and DeformableDETR3D at the JAX class defaults (hidden 256, 3+3 layers, 8
+   heads, 50 queries) on a 192x704 batch of 8 with aux outputs, the forward,
+   the loss and the gradients on the card against the same weights on the
+   CPU in float64, that run's assignment injected (outputs and loss within
+   2e-5 of their scale and gradients within 5e-4 for DETR3D, 2e-4 and 2e-3
+   for DeformableDETR3D; see DETR_TOLERANCE); the
+   pseudo-label lifecycle on the
+   driver's drive and final checkpoints: ``make_predictions``, then
+   ``train_detector`` at the CLI defaults (hidden 128, 2+2 layers, batch 8
+   at 192x704) for 20 steps with the AP|R40 eval at the end, for DETR3D and
+   --deformable (loss finite and falling, one JV launch per step, the eval
+   keys, a checkpoint; ms/step as the median after the first step), then
+   ``convert_predictions`` (KITTI txt of 16 fields); and
+   ``diagnostic_panels`` on the slice's frame 0 and params at 376x1408 (the
+   names, shapes, values in [0, 1], a ray's red dot and the white wireframe
+   at ground-truth corners; its two renders timed again alone, and its cost
+   per frame at the shipped config's image_intervals).
 
 The second-to-last line is a JSON object with one entry per kernel and
 mode of the paths: its launches in its path (K3 and K4b with the residual
-field: with the field in phase 8; JV: in the driver's first run; the sphere
+field: with the field in phase 8; JV at n = 16: in the driver's first run;
+JV at n = 50: in the detector phase's two training runs; the sphere
 trace: by mode from its counters in the photometric slices for R = 100 and
 in render_surface_mask for the view), its
 largest absolute error against the twin and that error relative to the
@@ -96,8 +117,10 @@ import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -926,14 +949,13 @@ def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int =
     return sampled
 
 
-def driver_phase(card: str) -> dict:
-    """Phase 9: the labeling driver three times on a synthetic drive (see
-    the module docstring). Returns the JV launches of the first run."""
+def driver_phase(card: str, root: str) -> dict:
+    """Phase 9: the labeling driver four times on a synthetic drive written
+    under ``root`` (see the module docstring). Returns the JV launches of
+    the first run and the drive's sampled-frames file."""
     import glob
     import logging
     import re
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -959,127 +981,435 @@ def driver_phase(card: str) -> dict:
 
     # the driver's logger, set up as the driver sets it up, and read here too
     parallel.get_logger("vsrd_tpu_torch.main", rank_zero_only=False).addHandler(Collect())
-    root = tempfile.mkdtemp(prefix="vsrd_smoke_")
-    try:
+    start = time.perf_counter()
+    sampled = synthetic_kitti360(root)
+    print(f"[driver] synthetic drive: 18 frames of 376x1408, {DRIVER_CARS} cars, in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    shipped = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "kitti_360", "vsrd", "config.json")
+    with open(shipped) as file:
+        config = json.load(file)
+    config["datasets"]["train"]["kwargs"]["filenames"] = [sampled]
+    config["optimization"].update(num_steps=DRIVER_STEPS, warmup_steps=DRIVER_WARMUP,
+                                  frames_per_batch=2)
+    config["logging"]["ckpt_intervals"] = DRIVER_CKPT
+    config_path = os.path.join(root, "configs", "smoke", DRIVE, "config.json")
+    os.makedirs(os.path.dirname(config_path))
+    with open(config_path, "w") as file:
+        json.dump(config, file)
+    ckpt_root = os.path.join(root, "ckpts", "smoke", DRIVE)
+
+    def drive(label, path=config_path):
+        messages.clear()
+        fk.reset_launch_counts()
+        matching.reset_launch_counts()
         start = time.perf_counter()
-        sampled = synthetic_kitti360(root)
-        print(f"[driver] synthetic drive: 18 frames of 376x1408, {DRIVER_CARS} cars, in "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-        shipped = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
-                               "kitti_360", "vsrd", "config.json")
-        with open(shipped) as file:
-            config = json.load(file)
-        config["datasets"]["train"]["kwargs"]["filenames"] = [sampled]
-        config["optimization"].update(num_steps=DRIVER_STEPS, warmup_steps=DRIVER_WARMUP,
-                                      frames_per_batch=2)
-        config["logging"]["ckpt_intervals"] = DRIVER_CKPT
-        config_path = os.path.join(root, "configs", "smoke", DRIVE, "config.json")
-        os.makedirs(os.path.dirname(config_path))
-        with open(config_path, "w") as file:
-            json.dump(config, file)
-        ckpt_root = os.path.join(root, "ckpts", "smoke", DRIVE)
+        driver.main(["--config", path, "--train"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = {"JV": matching.jv_assignment.launches,
+                  "sphere_trace": fk.sphere_trace.launches}
+        for name, fn in launchers.items():
+            counts[name] = (fn.launches, fn.batched_launches)
+        print(f"[driver] {label}: {wall:.2f} s; launches {counts} (all, with F > 1)",
+              flush=True)
+        return wall, counts
 
-        def drive(label, path=config_path):
-            messages.clear()
-            fk.reset_launch_counts()
-            matching.reset_launch_counts()
-            start = time.perf_counter()
-            driver.main(["--config", path, "--train"])
+    def finals():
+        return sorted(glob.glob(os.path.join(ckpt_root, "**", f"step_{DRIVER_STEPS - 1}.npz"),
+                                recursive=True))
+
+    wall, counts = drive("first run, 2 frames co-optimized")
+    loads = [float(m) for m in re.findall(
+        r"17 views at 376x1408, 12 instances in bucket 16: ([\d.]+) s", "\n".join(messages))]
+    if len(loads) != 2:
+        fail(f"driver: expected 2 frames of 17 views with 12 cars in bucket 16, got {messages}")
+    steps = DRIVER_STEPS
+    expected = {"JV": steps, "sphere_trace": 0, **{name: (steps, steps) for name in launchers}}
+    if counts != expected:
+        fail(f"driver: launches {counts}, expected {expected} (once per step for the batch)")
+    done = finals()
+    layout = opt.tree_map(lambda t: tuple(t.shape), opt.init_params(
+        torch.Generator().manual_seed(0), 16, opt.OptimizationConfig()))
+    layout = {"detector": layout["boxes"], "hyper_distance_field": layout["hyper"]}
+    if len(done) != 2:
+        fail(f"driver: {len(done)} final checkpoints, expected 2")
+    for path in done + [p.replace(f"step_{steps - 1}", f"step_{DRIVER_CKPT - 1}")
+                        for p in done]:
+        ckpt = saver.load_checkpoint(path)
+        final = path in done
+        keys = {"step", "models", "metrics", "valid"} | (set() if final else {"opt_state"})
+        shapes = opt.tree_map(lambda a: tuple(a.shape), ckpt["models"])
+        if set(ckpt) != keys or shapes != layout or int(ckpt["valid"].sum()) != DRIVER_CARS:
+            fail(f"driver: {path} is not in the JAX layout: keys {sorted(ckpt)}")
+        if not all(np.isfinite(v).all() for v in ckpt["metrics"].values()):
+            fail(f"driver: non-finite metrics in {path}: {ckpt['metrics']}")
+        if not final and int(ckpt["opt_state"]["count"]) != DRIVER_CKPT:
+            fail(f"driver: {path} holds the Adam count {ckpt['opt_state']['count']}")
+        convert.params_from_jax({"boxes": ckpt["models"]["detector"],
+                                 "hyper": ckpt["models"]["hyper_distance_field"]}, "cuda")
+    metrics = saver.load_checkpoint(done[0])["metrics"]
+    print(f"[driver] 2 final checkpoints in the JAX layout at bucket 16; frame 0 step "
+          f"{steps}: loss {float(metrics['loss']):.4f}; data load per frame (host) "
+          f"{', '.join(f'{t:.2f}' for t in loads)} s; {wall / 2:.2f} s per frame for "
+          f"{steps} steps with the load, {(wall - sum(loads)) / 2:.2f} without, on {card}",
+          flush=True)
+
+    _, again = drive("second run")
+    idle = {"JV": 0, "sphere_trace": 0, **{name: (0, 0) for name in launchers}}
+    if sum("already optimized" in m for m in messages) != 2 or again != idle:
+        fail(f"driver: the second run did not skip both frames: {messages}, {again}")
+
+    os.remove(done[0])
+    _, resumed = drive("third run, one final checkpoint deleted")
+    rest = DRIVER_STEPS - DRIVER_CKPT
+    if not any(f"resuming from step_{DRIVER_CKPT - 1}" in m for m in messages):
+        fail(f"driver: the third run did not resume from step_{DRIVER_CKPT - 1}: {messages}")
+    if (sum("already optimized" in m for m in messages) != 1 or finals() != done
+            or resumed != {"JV": rest, "sphere_trace": 0,
+                           **{name: (rest, 0) for name in launchers}}):
+        fail(f"driver: the resumed run: {messages}, launches {resumed}")
+    print(f"[driver] second run skipped both frames with no launch; third run resumed "
+          f"frame 0 from step_{DRIVER_CKPT - 1} for {rest} single-frame steps", flush=True)
+
+    # the photometric branch: the driver decodes the textured PNGs
+    config["loss_weights"] = dict(config.get("loss_weights", {}), photometric_loss=1.0)
+    photo_path = config_path.replace(os.sep + "smoke" + os.sep,
+                                     os.sep + "smoke_photometric" + os.sep)
+    os.makedirs(os.path.dirname(photo_path))
+    with open(photo_path, "w") as file:
+        json.dump(config, file)
+    photo_wall, photo_counts = drive("fourth run, photometric weight 1.0", photo_path)
+    photo_loads = [float(m) for m in re.findall(
+        r"17 views at 376x1408, 12 instances in bucket 16: ([\d.]+) s", "\n".join(messages))]
+    photo_done = sorted(glob.glob(os.path.join(
+        root, "ckpts", "smoke_photometric", "**", f"step_{steps - 1}.npz"), recursive=True))
+    want = {"JV": steps, "sphere_trace": steps - DRIVER_WARMUP,
+            **{name: (steps, steps) for name in launchers}}
+    if photo_counts != want or len(photo_done) != 2 or len(photo_loads) != 2:
+        fail(f"driver, photometric run: launches {photo_counts} (expected {want}), "
+             f"{len(photo_done)} final checkpoints, {messages}")
+    photo_metrics = saver.load_checkpoint(photo_done[0])["metrics"]
+    if not all(np.isfinite(v).all() for v in photo_metrics.values()):
+        fail(f"driver, photometric run: non-finite metrics {photo_metrics}")
+    print(f"[driver] photometric run: 2 frames, sphere trace launched "
+          f"{photo_counts['sphere_trace']} times; data load with the pixels decoded "
+          f"{', '.join(f'{t:.2f}' for t in photo_loads)} s per frame; {photo_wall / 2:.2f} s "
+          f"per frame with it on {card}", flush=True)
+    return {"launches": counts, "load_s": loads, "wall_s": wall,
+            "photometric_load_s": photo_loads, "photometric_wall_s": photo_wall,
+            "sampled": sampled}
+
+
+DETR_SHAPES = (8, 24)                  # [B * L, 50, 50]: 8 images, 1 and 3 decoder levels
+DETR_QUERIES = 50
+DETR_STEPS = 20
+# the detector on the card against the same weights on the CPU in float64:
+# (outputs and loss, gradients) within these shares of each one's and each
+# leaf's scale. On an NVIDIA H100 80GB HBM3 this phase read DETR3D at 2.30e-6
+# and 7.77e-5, DeformableDETR3D at 6.14e-5 and 3.81e-4: the deformable
+# decoder amplifies f32 rounding layer by layer, on any device (the CPU's own
+# f32 run read 1.33e-4 and 4.60e-3 there), so f32 on the CPU is no reference
+# and each variant has bars of its own.
+DETR_TOLERANCE = {"DETR3D": (2e-5, 5e-4), "DeformableDETR3D": (2e-4, 2e-3)}
+
+
+def detr_costs(frames: int, seed: int):
+    """``[frames, 50, 50]`` DETR matching costs (``detr3d.matching_cost``)
+    of random head outputs against up to 16 targets, PAD_COST elsewhere."""
+    import torch
+
+    from vsrd_tpu_torch.models import detr3d
+
+    gen = torch.Generator().manual_seed(seed)
+    n = 16
+    corner = torch.rand(frames, n, 2, generator=gen) * 0.6
+    valid = torch.arange(n)[None] < torch.randint(1, n + 1, (frames, 1), generator=gen)
+    return detr3d.matching_cost(
+        {"logits": torch.randn(frames, DETR_QUERIES, 2, generator=gen),
+         "boxes_2d": torch.rand(frames, DETR_QUERIES, 4, generator=gen)},
+        torch.zeros(frames, n, dtype=torch.int32), torch.cat([corner, corner + 0.2], -1), valid)
+
+
+def detr_jv_phase(card: str) -> dict:
+    """JV at the DETR loss's shapes against its twin, timed on events and on
+    the host; returns the [8, 50, 50] entry for the kernels line."""
+    from vsrd_tpu_torch.ops import matching
+
+    out = {}
+    for frames in DETR_SHAPES:
+        cost = detr_costs(frames, frames)
+        start = time.perf_counter()
+        want = matching.linear_sum_assignment_twin(cost)
+        plain = (time.perf_counter() - start) * 1e3
+        padded = cost.cuda()
+        got = matching.jv_assignment(padded).cpu()
+        if not (got == want).all():
+            fail(f"JV at [{frames}, 50, 50]: the kernel's row_to_col differs from its twin's")
+        entry = dict(frames=frames, n=DETR_QUERIES, max_abs_err=0.0,
+                     ms=median_ms(lambda: matching.jv_assignment(padded)),
+                     event_ms=event_ms(lambda: matching.jv_assignment(padded)), plain_ms=plain,
+                     bound=(frames * DETR_QUERIES * (4 * DETR_QUERIES + 8) / PEAK_BYTES * 1e3,
+                            "bytes"))
+        out[frames] = entry
+        print(f"[detector] JV [{frames}, 50, 50] = its twin entry for entry; "
+              f"{entry['ms']:.4f} ms host, {entry['event_ms']:.4f} ms events (plain twin on the "
+              f"host {plain:.1f} ms; bound {entry['bound'][0]:.6f} ms by bytes) on {card}",
+              flush=True)
+    return out[DETR_SHAPES[0]]
+
+
+def detr_model_phase(card: str) -> None:
+    """DETR3D and DeformableDETR3D at the JAX class defaults (hidden 256,
+    3+3 layers, 8 heads, 50 queries) on a 192x704 batch of 8 with aux
+    outputs: the forward, the loss and the gradients on the card (f32)
+    against the same weights on the CPU in float64, with the float64 run's
+    assignment injected; the CPU's f32 run is read against the same
+    reference for scale. An attention key bias's gradient is zero in exact
+    arithmetic (the softmax ignores a shift shared by every key), so it is
+    held to the largest gradient instead of its own scale."""
+    import numpy as np
+    import torch
+
+    from vsrd_tpu_torch.models import detr3d
+    from vsrd_tpu_torch.ops import matching
+
+    rng = np.random.default_rng(0)
+    b, n = 8, 16
+    k = np.asarray(KITTI_K, np.float32) * np.float32([[0.5], [0.5], [1.0]])
+    corner = rng.uniform(0.05, 0.7, size=(b, n, 2)).astype(np.float32)
+    batch = {
+        "images": torch.from_numpy(rng.random((b, 192, 704, 3)).astype(np.float32)),
+        "intrinsics": torch.from_numpy(np.broadcast_to(k, (b, 3, 3)).copy()),
+        "labels": torch.zeros(b, n, dtype=torch.int32),
+        "boxes_2d": torch.from_numpy(np.concatenate([corner, corner + 0.2], -1)),
+        "boxes_3d": torch.from_numpy((rng.normal(size=(b, n, 8, 3)) * 2 + [0, 1, 20]).astype(
+            np.float32)),
+        "valid": torch.from_numpy(np.arange(n)[None] < rng.integers(1, n + 1, size=(b, 1))),
+    }
+
+    def run(deformable, device, dtype, rows):
+        model = detr3d.make_detector(deformable, seed=0, device="cpu").to(device, dtype)
+        on = {key: value.to(device, dtype) if value.is_floating_point() else value.to(device)
+              for key, value in batch.items()}
+        start = time.perf_counter()
+        out = model(on["images"], on["intrinsics"], aux_outputs=True)
+        if rows is None:
+            levels = [out] + out["aux_outputs"]
+            costs = torch.cat([detr3d.matching_cost(level, on["labels"], on["boxes_2d"],
+                                                    on["valid"]) for level in levels])
+            rows = matching.linear_sum_assignment(costs).reshape(len(levels), b, -1)
+        loss, _ = detr3d.detr_loss(out, on["labels"], on["boxes_2d"], on["boxes_3d"],
+                                   on["valid"], row_to_col=rows.unbind(0))
+        loss.backward()
+        if device == "cuda":
             torch.cuda.synchronize()
-            wall = time.perf_counter() - start
-            counts = {"JV": matching.jv_assignment.launches,
-                      "sphere_trace": fk.sphere_trace.launches}
-            for name, fn in launchers.items():
-                counts[name] = (fn.launches, fn.batched_launches)
-            print(f"[driver] {label}: {wall:.2f} s; launches {counts} (all, with F > 1)",
-                  flush=True)
-            return wall, counts
+        seconds = time.perf_counter() - start
+        outputs = {key: out[key].detach().double().cpu() for key in
+                   ("logits", "boxes_2d", "boxes_3d", "locations")}
+        outputs["loss"] = loss.detach().double().cpu()
+        grads = {name: p.grad.double().cpu() for name, p in model.named_parameters()
+                 if p.grad is not None}
+        return outputs, grads, rows, seconds
 
-        def finals():
-            return sorted(glob.glob(os.path.join(ckpt_root, "**", f"step_{DRIVER_STEPS - 1}.npz"),
-                                    recursive=True))
+    def errors(outputs, grads, ref_outputs, ref_grads):
+        out = max(float((outputs[key] - v).abs().max() / v.abs().max())
+                  for key, v in ref_outputs.items())
+        largest = max(float(g.abs().max()) for g in ref_grads.values())
+        grad = max(float((grads[name] - g).abs().max())
+                   / (largest if name.endswith("key.bias") else float(g.abs().max()))
+                   for name, g in ref_grads.items())
+        return out, grad
 
-        wall, counts = drive("first run, 2 frames co-optimized")
-        loads = [float(m) for m in re.findall(
-            r"17 views at 376x1408, 12 instances in bucket 16: ([\d.]+) s", "\n".join(messages))]
-        if len(loads) != 2:
-            fail(f"driver: expected 2 frames of 17 views with 12 cars in bucket 16, got {messages}")
-        steps = DRIVER_STEPS
-        expected = {"JV": steps, "sphere_trace": 0, **{name: (steps, steps) for name in launchers}}
-        if counts != expected:
-            fail(f"driver: launches {counts}, expected {expected} (once per step for the batch)")
-        done = finals()
-        layout = opt.tree_map(lambda t: tuple(t.shape), opt.init_params(
-            torch.Generator().manual_seed(0), 16, opt.OptimizationConfig()))
-        layout = {"detector": layout["boxes"], "hyper_distance_field": layout["hyper"]}
-        if len(done) != 2:
-            fail(f"driver: {len(done)} final checkpoints, expected 2")
-        for path in done + [p.replace(f"step_{steps - 1}", f"step_{DRIVER_CKPT - 1}")
-                            for p in done]:
-            ckpt = saver.load_checkpoint(path)
-            final = path in done
-            keys = {"step", "models", "metrics", "valid"} | (set() if final else {"opt_state"})
-            shapes = opt.tree_map(lambda a: tuple(a.shape), ckpt["models"])
-            if set(ckpt) != keys or shapes != layout or int(ckpt["valid"].sum()) != DRIVER_CARS:
-                fail(f"driver: {path} is not in the JAX layout: keys {sorted(ckpt)}")
-            if not all(np.isfinite(v).all() for v in ckpt["metrics"].values()):
-                fail(f"driver: non-finite metrics in {path}: {ckpt['metrics']}")
-            if not final and int(ckpt["opt_state"]["count"]) != DRIVER_CKPT:
-                fail(f"driver: {path} holds the Adam count {ckpt['opt_state']['count']}")
-            convert.params_from_jax({"boxes": ckpt["models"]["detector"],
-                                     "hyper": ckpt["models"]["hyper_distance_field"]}, "cuda")
-        metrics = saver.load_checkpoint(done[0])["metrics"]
-        print(f"[driver] 2 final checkpoints in the JAX layout at bucket 16; frame 0 step "
-              f"{steps}: loss {float(metrics['loss']):.4f}; data load per frame (host) "
-              f"{', '.join(f'{t:.2f}' for t in loads)} s; {wall / 2:.2f} s per frame for "
-              f"{steps} steps with the load, {(wall - sum(loads)) / 2:.2f} without, on {card}",
+    for deformable in (False, True):
+        ref_out, ref_grads, rows, _ = run(deformable, "cpu", torch.float64, None)
+        cpu_out, cpu_grads, _, cpu_s = run(deformable, "cpu", torch.float32, rows)
+        card_out, card_grads, _, card_s = run(deformable, "cuda", torch.float32, rows)
+        name = "DeformableDETR3D" if deformable else "DETR3D"
+        card_err, card_grad = errors(card_out, card_grads, ref_out, ref_grads)
+        cpu_err, cpu_grad = errors(cpu_out, cpu_grads, ref_out, ref_grads)
+        out_bar, grad_bar = DETR_TOLERANCE[name]
+        if (set(card_grads) != set(ref_grads) or not card_err <= out_bar
+                or not card_grad <= grad_bar):
+            fail(f"{name} on the card against float64 on the CPU: outputs and loss "
+                 f"{card_err:.3e}, gradients {card_grad:.3e}")
+        print(f"[detector] {name} (hidden 256, 3+3 layers, 50 queries, batch 8 at 192x704, aux "
+              f"outputs) against float64 on the CPU: the card's outputs and loss {card_err:.2e} "
+              f"(bar {out_bar}), gradients {card_grad:.2e} (bar {grad_bar}); "
+              f"the CPU's f32 run {cpu_err:.2e} and {cpu_grad:.2e}; forward+loss+backward "
+              f"{card_s * 1e3:.1f} ms on the card (first call), {cpu_s * 1e3:.1f} ms on the CPU",
               flush=True)
 
-        _, again = drive("second run")
-        idle = {"JV": 0, "sphere_trace": 0, **{name: (0, 0) for name in launchers}}
-        if sum("already optimized" in m for m in messages) != 2 or again != idle:
-            fail(f"driver: the second run did not skip both frames: {messages}, {again}")
 
-        os.remove(done[0])
-        _, resumed = drive("third run, one final checkpoint deleted")
-        rest = DRIVER_STEPS - DRIVER_CKPT
-        if not any(f"resuming from step_{DRIVER_CKPT - 1}" in m for m in messages):
-            fail(f"driver: the third run did not resume from step_{DRIVER_CKPT - 1}: {messages}")
-        if (sum("already optimized" in m for m in messages) != 1 or finals() != done
-                or resumed != {"JV": rest, "sphere_trace": 0,
-                               **{name: (rest, 0) for name in launchers}}):
-            fail(f"driver: the resumed run: {messages}, launches {resumed}")
-        print(f"[driver] second run skipped both frames with no launch; third run resumed "
-              f"frame 0 from step_{DRIVER_CKPT - 1} for {rest} single-frame steps", flush=True)
+def lifecycle_phase(card: str, root: str, sampled: str) -> dict:
+    """make_predictions on the driver's final checkpoints, train_detector at
+    the CLI defaults for 20 steps with the eval at the end (DETR3D, then
+    --deformable), then convert_predictions. Returns the JV launches of the
+    two training runs and their step times."""
+    import glob
 
-        # the photometric branch: the driver decodes the textured PNGs
-        config["loss_weights"] = dict(config.get("loss_weights", {}), photometric_loss=1.0)
-        photo_path = config_path.replace(os.sep + "smoke" + os.sep,
-                                         os.sep + "smoke_photometric" + os.sep)
-        os.makedirs(os.path.dirname(photo_path))
-        with open(photo_path, "w") as file:
-            json.dump(config, file)
-        photo_wall, photo_counts = drive("fourth run, photometric weight 1.0", photo_path)
-        photo_loads = [float(m) for m in re.findall(
-            r"17 views at 376x1408, 12 instances in bucket 16: ([\d.]+) s", "\n".join(messages))]
-        photo_done = sorted(glob.glob(os.path.join(
-            root, "ckpts", "smoke_photometric", "**", f"step_{steps - 1}.npz"), recursive=True))
-        want = {"JV": steps, "sphere_trace": steps - DRIVER_WARMUP,
-                **{name: (steps, steps) for name in launchers}}
-        if photo_counts != want or len(photo_done) != 2 or len(photo_loads) != 2:
-            fail(f"driver, photometric run: launches {photo_counts} (expected {want}), "
-                 f"{len(photo_done)} final checkpoints, {messages}")
-        photo_metrics = saver.load_checkpoint(photo_done[0])["metrics"]
-        if not all(np.isfinite(v).all() for v in photo_metrics.values()):
-            fail(f"driver, photometric run: non-finite metrics {photo_metrics}")
-        print(f"[driver] photometric run: 2 frames, sphere trace launched "
-              f"{photo_counts['sphere_trace']} times; data load with the pixels decoded "
-              f"{', '.join(f'{t:.2f}' for t in photo_loads)} s per frame; {photo_wall / 2:.2f} s "
-              f"per frame with it on {card}", flush=True)
-        return {"launches": counts, "load_s": loads, "wall_s": wall,
-                "photometric_load_s": photo_loads, "photometric_wall_s": photo_wall}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    import numpy as np
+
+    from vsrd_tpu_torch.ops import matching
+    from vsrd_tpu_torch.scripts import train_detector
+    from vsrd_tpu_torch.tools.kitti_360 import convert_predictions, make_predictions
+
+    # make_predictions groups the frames by instance-id set: one key per target
+    with open(sampled) as file:
+        lines = [line.split() for line in file if line.strip()]
+    split = os.path.join(root, "filenames", "smoke_groups", DRIVE)
+    os.makedirs(split)
+
+    def frames_of(target):
+        index = int(os.path.basename(target)[:-4])
+        return [os.path.join(os.path.dirname(target), f"{f:010d}.png")
+                for f in range(index - 8, index + 9)]
+
+    with open(os.path.join(split, "grouped_image_filenames.txt"), "w") as grouped, \
+            open(os.path.join(split, "sampled_image_filenames.txt"), "w") as out:
+        for index, (ids, target, relative) in enumerate(lines):
+            ids = ",".join(ids.split(",")[::-1] if index % 2 else ids.split(","))
+            grouped.write(f"{ids} {','.join(frames_of(target))}\n")
+            out.write(f"{ids} {target} {relative}\n")
+    ckpt_dirname = os.path.join(root, "ckpts", "smoke")
+    start = time.perf_counter()
+    make_predictions.make_predictions(DRIVE, root, ckpt_dirname, f"step_{DRIVER_STEPS - 1}.npz",
+                                      "smoke_groups", ["car"])
+    predictions = sorted(glob.glob(os.path.join(root, "predictions", "smoke", DRIVE, "image_00",
+                                                "data_rect", "*.json")))
+    expected = len({f for _, target, _ in lines for f in frames_of(target) if os.path.exists(f)})
+    if len(predictions) != expected:
+        fail(f"make_predictions wrote {len(predictions)} JSONs, expected {expected}")
+    with open(predictions[len(predictions) // 2]) as file:
+        labels = json.load(file)
+    confidences = np.asarray(labels["confidences"]["car"])
+    if np.asarray(labels["boxes_3d"]["car"]).shape != (DRIVER_CARS, 8, 3):
+        fail(f"make_predictions: the middle frame holds {len(confidences)} boxes, not "
+             f"{DRIVER_CARS}")
+    print(f"[detector] make_predictions: {len(predictions)} JSONs of {DRIVER_CARS} cars in "
+          f"{time.perf_counter() - start:.1f} s (host); the middle frame's confidences "
+          f"{confidences.min():.3f}-{confidences.max():.3f}", flush=True)
+
+    runs = {}
+    for variant in ("DETR3D", "DeformableDETR3D"):
+        matching.reset_launch_counts()
+        argv = ["--root_dirname", root, "--ckpt_dirname", "ckpts/smoke",
+                "--out_dirname", os.path.join(root, "detr", variant),
+                "--num_steps", str(DETR_STEPS), "--confidence_threshold", "0.0"]
+        history = train_detector.main(argv + (["--deformable"] if variant != "DETR3D" else []))
+        launches = matching.jv_assignment.launches
+        losses = history["losses"]
+        metrics = history["eval"] or {}
+        ms = statistics.median(history["step_seconds"][1:]) * 1e3
+        if (not all(math.isfinite(v) for v in losses) or launches != DETR_STEPS
+                or not np.mean(losses[-5:]) < np.mean(losses[:5])
+                or not {"ap_r40_0.25", "ap_r40_0.5", "ap_r40_0.5_moderate"} <= set(metrics)
+                or not os.path.exists(history["checkpoint"])):
+            fail(f"train_detector {variant}: losses {losses}, {launches} JV launches (expected "
+                 f"{DETR_STEPS}), eval {metrics}")
+        r40 = {k: round(v, 4) for k, v in sorted(metrics.items()) if k.startswith("ap_r40")}
+        print(f"[detector] train_detector {variant} (hidden 128, 2+2 layers, 50 queries, batch 8 "
+              f"at 192x704): loss {losses[0]:.3f} -> {losses[-1]:.3f} in {DETR_STEPS} steps, "
+              f"{ms:.1f} ms/step (median after the first; first {history['step_seconds'][0]:.2f} "
+              f"s), {launches} JV launches; eval {history['eval_seconds'] * 1e3:.0f} ms: "
+              f"{json.dumps(r40)} on {card}", flush=True)
+        runs[variant] = {"launches": launches, "ms_per_step": ms,
+                         "eval_ms": history["eval_seconds"] * 1e3}
+
+    convert_predictions.convert_predictions(DRIVE, root, ckpt_dirname, ["car"])
+    txts = glob.glob(os.path.join(root, "labels", "smoke", "**", "*.txt"), recursive=True)
+    fields = [line.split(" ") for path in txts for line in open(path).read().splitlines()]
+    if len(txts) != 2 * len(predictions) or not fields or any(
+            len(f) != 16 or f[0] != "Car" for f in fields):
+        fail(f"convert_predictions: {len(txts)} KITTI txt files, lines {fields[:2]}")
+    print(f"[detector] convert_predictions: {len(txts)} KITTI txt files, {len(fields)} lines of "
+          f"16 fields", flush=True)
+    return runs
+
+
+def panels_phase(params, frame, cfg, card: str) -> None:
+    """diagnostic_panels on the slice's frame 0 (17 views at 376x1408) and
+    its params at the last step: names, shapes, values in [0, 1], a ray's
+    red dot and a ground-truth corner's white wireframe pixel."""
+    import numpy as np
+    import torch
+
+    from vsrd_tpu_torch.ops import sampling
+    from vsrd_tpu_torch.pipeline import render_image
+    from vsrd_tpu_torch.visualization import panels
+
+    h, w = frame.image_size
+    target = int(frame.target_index)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rays = frame.candidate_indices[sampling.multinomial_logits(
+        frame.candidate_weights, cfg.num_rays, gen)].cpu().numpy()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = panels.diagnostic_panels(params, frame, cfg.num_steps - 1, cfg, ray_indices=rays)
+    seconds = time.perf_counter() - start
+    # the panels' two renders of the target view again, alone: the rest of
+    # the call is the host's drawing, with the card idle
+    start = time.perf_counter()
+    render_image.render_instance_probabilities(params, frame, cfg.num_steps - 1, cfg,
+                                               view=target)
+    render_image.render_surface_mask(params, frame, cfg.num_steps - 1, cfg, view=target)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - start
+    # the driver draws them at each checkpoint that falls on image_intervals,
+    # once per frame of a batch, when a tensorboardX writer exists
+    shipped = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "kitti_360", "vsrd", "config.json")
+    with open(shipped) as file:
+        config = json.load(file)
+    steps = config["optimization"].get("num_steps", 3000)
+    ckpt = config["logging"].get("ckpt_intervals", 500)
+    every = config["logging"].get("image_intervals", 500)
+    ends = sorted(set(range(ckpt, steps, ckpt)) | {steps})
+    calls = sum(1 for end in ends if end % every == 0)
+    names = {f"gt/{v - target}" for v in range(frame.num_views)} | {"pd/0", "bev/0"}
+    bad = [name for name, image in out.items()
+           if image.shape != ((1000, 1000, 3) if name == "bev/0" else (h, w, 3))
+           or not np.isfinite(image).all() or image.min() < 0 or image.max() > 1]
+    if set(out) != names or bad:
+        fail(f"diagnostic_panels: names {sorted(out)}, bad panels {bad}")
+    view, y, x = rays[0] // (h * w), (rays[0] % (h * w)) // w, rays[0] % w
+    if out[f"gt/{view - target}"][y, x].tolist() != [1.0, 0.0, 0.0]:
+        fail(f"diagnostic_panels: no red dot at ray 0 (view {view}, y {y}, x {x})")
+    # a ground-truth corner in front of the target camera, away from the dots
+    # projected as the panel projects them
+    cam = panels._camera_boxes(frame.gt_boxes_3d[frame.valid].cpu().numpy(),
+                               frame.extrinsics[target].cpu().numpy()).reshape(-1, 3)
+    pix = cam @ frame.intrinsics[target].cpu().numpy().astype(np.float64).T
+    dots = rays[rays // (h * w) == target]
+    dot_xy = np.stack([dots % w, (dots % (h * w)) // w], -1)
+    checked = 0
+    for (px, py, pz), depth in zip(pix, cam[:, 2]):
+        u, v = int(px / max(pz, 1e-6)), int(py / max(pz, 1e-6))
+        if depth > 0.5 and 0 <= u < w and 0 <= v < h and (
+                not len(dot_xy) or np.abs(dot_xy - [u, v]).max(-1).min() > 3):
+            if out["gt/0"][v, u].tolist() != [1.0, 1.0, 1.0]:
+                fail(f"diagnostic_panels: the wireframe corner at ({u}, {v}) is not white")
+            checked += 1
+    if not checked:
+        fail("diagnostic_panels: no ground-truth corner inside the target view")
+    print(f"[detector] diagnostic_panels: {len(out)} panels ({frame.num_views} views of "
+          f"{h}x{w} and the BEV) in {seconds:.2f} s (its two renders alone {render_s:.2f} s, "
+          f"the host's drawing the rest), ray 0's dot and {checked} wireframe corners where "
+          f"expected; at the shipped config's {steps} steps, ckpt_intervals {ckpt} and "
+          f"image_intervals {every}, {calls} calls add {calls * seconds:.1f} s to each frame "
+          f"when tensorboardX is installed, on {card}", flush=True)
+
+
+def detector_phase(card: str, root: str, sampled: str, params, frame, cfg) -> dict:
+    """Phase 13 (see the module docstring); returns the JV entry of the
+    kernels line at the DETR shape and the training runs' numbers."""
+    start = time.perf_counter()
+    jv = detr_jv_phase(card)
+    detr_model_phase(card)
+    runs = lifecycle_phase(card, root, sampled)
+    panels_phase(params, frame, cfg, card)
+    print(f"[time] detector phase: {time.perf_counter() - start:.1f} s", flush=True)
+    return {"jv": jv, "runs": runs}
 
 
 def main():
@@ -1156,7 +1486,8 @@ def main():
 
     params, launches, _ = run_path("slice", frames[0], cfg, batched=False)
     single_ms = step_times(frames[0], params, cfg)
-    del params
+    # the detector phase draws its panels from these
+    slice_params, slice_frame = params, frames[0]
     params, photo_launches, _ = run_path("photometric slice", frames[0], photo_cfg,
                                          batched=False)
     photo_ms = {"weight 0": step_times(frames[0], params, cfg)["rdf"],
@@ -1190,7 +1521,12 @@ def main():
     coarse_launches.update(batched_coarse)
     del batch
     torch.cuda.empty_cache()
-    drive = driver_phase(card)
+    root = tempfile.mkdtemp(prefix="vsrd_smoke_")
+    try:
+        drive = driver_phase(card, root)
+        detector = detector_phase(card, root, drive["sampled"], slice_params, slice_frame, cfg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     sources = {
         "K1": ("fused_forward.cu", f"{PALLAS}:111"),
@@ -1240,6 +1576,23 @@ def main():
         "plain_ms": jv["plain_ms"],
         "bound_ms": jv["bound"][0],
         "bound_by": jv["bound"][1],
+        "library_ms": None,
+    })
+    detr_jv = detector["jv"]
+    kernels.append({
+        "name": f"JV (n={DETR_QUERIES}, DETR loss)",
+        "route": "cuda",
+        "source": "vsrd_tpu_torch/csrc/matching.cu",
+        "replaces": "vsrd_tpu/ops/matching.py:27",
+        "frames": detr_jv["frames"],
+        "launches": sum(run["launches"] for run in detector["runs"].values()),
+        "max_abs_err": detr_jv["max_abs_err"],
+        "max_rel_err": detr_jv["max_abs_err"],
+        "ms": detr_jv["ms"],
+        "event_ms": detr_jv["event_ms"],
+        "plain_ms": detr_jv["plain_ms"],
+        "bound_ms": detr_jv["bound"][0],
+        "bound_by": detr_jv["bound"][1],
         "library_ms": None,
     })
     # each entry's launches: the counts of its mode in the run of its shape,

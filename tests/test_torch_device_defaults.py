@@ -34,6 +34,9 @@ CALLS = {
     "to_torch_tree": (convert.to_torch_tree, lambda: ({"a": np.ones(3)},)),
     "params_from_jax": (convert.params_from_jax,
                         lambda: ({"boxes": {"x": np.ones(2)}, "hyper": {"layers": []}},)),
+    "detector_params_from_jax": (convert.detector_params_from_jax, lambda: (
+        {"params": {"heads": {"classification_head": {"kernel": np.ones((4, 2)),
+                                                      "bias": np.zeros(2)}}}},)),
     "adam_state_from_jax": (convert.adam_state_from_jax, lambda: ({
         "mu": {"boxes": {"x": np.ones(2)}, "hyper": {"layers": []}},
         "nu": {"boxes": {"x": np.ones(2)}, "hyper": {"layers": []}}, "count": 0},)),
@@ -98,3 +101,47 @@ def test_the_driver_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypa
         assert not loaded
     driver.main(["--config", str(config), "--train", "--device", "cpu"])
     assert loaded
+
+
+def test_the_detector_entry_points_run_on_the_card_unless_asked_for_the_cpu():
+    """``make_detector`` and ``create_train_state`` take ``device="cuda"`` by
+    default; without a card a call that asks for nothing fails."""
+    from vsrd_tpu_torch.models import detr3d
+    from vsrd_tpu_torch.pipeline import detector_training
+
+    small = dict(num_queries=4, hidden_dim=16, num_encoder_layers=1, num_decoder_layers=1,
+                 num_heads=2)
+    for fn in (detr3d.make_detector, detector_training.create_train_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        model = detr3d.make_detector(**small)
+        assert _devices(dict(model.state_dict())) == {"cuda"}
+        model, _ = detector_training.create_train_state(detr3d.make_detector(device="cpu",
+                                                                             **small))
+        assert _devices(dict(model.state_dict())) == {"cuda"}
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            detr3d.make_detector(**small)
+        with pytest.raises((AssertionError, RuntimeError)):
+            detector_training.create_train_state(detr3d.make_detector(device="cpu", **small))
+    model = detr3d.make_detector(True, device="cpu", **small)
+    model, optimizer = detector_training.create_train_state(model, device="cpu")
+    assert _devices(dict(model.state_dict())) == {"cpu"}
+
+
+def test_train_detector_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """``python -m vsrd_tpu_torch.scripts.train_detector`` takes ``--device
+    cuda`` by default: without a card it fails before it reads any data."""
+    from vsrd_tpu_torch.scripts import train_detector
+
+    read = []
+    monkeypatch.setattr(train_detector, "build_index", lambda *a: read.append(a) or [])
+    argv = ["--root_dirname", str(tmp_path), "--ckpt_dirname", "ckpts/vsrd"]
+    assert train_detector.parse_args(argv).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            train_detector.main(argv)
+        assert not read
+    with pytest.raises(SystemExit, match="no prediction JSONs"):
+        train_detector.main(argv + ["--device", "cpu"])
+    assert read

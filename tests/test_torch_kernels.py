@@ -28,8 +28,10 @@ with a card and no JAX):
   their repeatability, F=1 through the batched entry point and frame
   isolation at F=3; the same for K3/K4b, with N = 2 and with N = 64 for
   its 128-thread CTAs with the residual field. K1/K2 and K4a/K4c also at
-  the driver's instance buckets N = 16, 24 and 32; and the JV matching
-  kernel (``csrc/matching.cu``) against its twin at n = 9 to 64.
+  the driver's instance buckets N = 16, 24 and 32; the JV matching kernel
+  (``csrc/matching.cu``) against its twin at n = 9 to 64 and at the DETR
+  loss's 8 x {1, 3} levels of [50, 50] costs; and the detector
+  (``models/detr3d.py``) on the card against float64 on the CPU.
 
 Tolerances, with their reasons:
 * host math: u and w 2e-6 absolute (+ 2e-7 relative): the same f32
@@ -1231,6 +1233,91 @@ def test_jv_kernel_matches_its_twin_on_card(cuda, n):
     assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
     padded = torch.where(valid[3][:, None] & valid[3][None, :], cost[3], tmatch.PAD_COST)
     assert torch.equal(tmatch.jv_assignment(padded.to(cuda)).cpu(), want[3])
+
+
+def _detr_batch(b, n, hw, seed):
+    rng = np.random.default_rng(seed)
+    corner = rng.uniform(0.1, 0.6, size=(b, n, 2)).astype(np.float32)
+    k = np.asarray([[552.5, 0, hw[1] / 2], [0, 552.5, hw[0] / 2], [0, 0, 1]], np.float32)
+    return {
+        "images": torch.from_numpy(rng.random((b, *hw, 3)).astype(np.float32)),
+        "intrinsics": torch.from_numpy(np.broadcast_to(k * hw[1] / 1408, (b, 3, 3)).copy()),
+        "labels": torch.zeros(b, n, dtype=torch.int32),
+        "boxes_2d": torch.from_numpy(np.concatenate([corner, corner + 0.2], -1)),
+        "boxes_3d": torch.from_numpy((rng.normal(size=(b, n, 8, 3)) * 2 + [0, 1, 20]).astype(
+            np.float32)),
+        "valid": torch.from_numpy(np.arange(n)[None] < rng.integers(1, n + 1, size=(b, 1))),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [1, 3])
+def test_jv_kernel_takes_the_detr_costs_on_card(cuda, levels):
+    """The DETR loss's matching shape: 8 images x ``levels`` decoder levels of
+    [50, 50] costs (up to 16 targets in the first columns, PAD_COST in the
+    rest) in ONE launch, equal to the twin entry for entry."""
+    from vsrd_tpu_torch.models import detr3d
+
+    torch.manual_seed(levels)
+    batch = _detr_batch(8, 16, (64, 96), levels)
+    costs = torch.cat([detr3d.matching_cost(
+        {"logits": torch.randn(8, 50, 2), "boxes_2d": torch.rand(8, 50, 4)},
+        batch["labels"], batch["boxes_2d"], batch["valid"]) for _ in range(levels)])
+    assert costs.shape == (8 * levels, 50, 50)
+    before = tmatch.jv_assignment.launches
+    got = tmatch.linear_sum_assignment(costs.to(cuda))
+    assert tmatch.jv_assignment.launches == before + 1
+    assert torch.equal(got.cpu(), tmatch.linear_sum_assignment_twin(costs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deformable", [False, True])
+def test_detector_forward_and_gradients_on_card_match_the_cpu(cuda, deformable):
+    """The port's detector (hidden 64, 2+2 layers, 50 queries) on a 96x352
+    batch of 4 on the card (f32) against the same weights on the CPU in
+    float64, with that run's assignment injected: outputs and loss within
+    2e-5 of each one's scale and gradients within 5e-4 of each leaf's for
+    DETR3D, 2e-4 and 2e-3 for DeformableDETR3D, the bars of ``chip_smoke.py``
+    (the deformable decoder amplifies f32 rounding layer by layer, on the
+    card and in f32 on the CPU alike, which is why float64 is the
+    reference). An attention key bias's gradient is zero in exact
+    arithmetic, so it is held to the largest gradient."""
+    from vsrd_tpu_torch.models import detr3d
+
+    kwargs = dict(num_queries=50, hidden_dim=64, num_encoder_layers=2, num_decoder_layers=2,
+                  num_heads=8)
+    batch = _detr_batch(4, 12, (96, 352), 0)
+    results, rows = {}, None
+    for device, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
+        model = detr3d.make_detector(deformable, seed=0, device="cpu", **kwargs).to(device, dtype)
+        on = {k: v.to(device, dtype) if v.is_floating_point() else v.to(device)
+              for k, v in batch.items()}
+        out = model(on["images"], on["intrinsics"], aux_outputs=True)
+        if rows is None:
+            costs = torch.cat([detr3d.matching_cost(level, on["labels"], on["boxes_2d"],
+                                                    on["valid"])
+                               for level in [out] + out["aux_outputs"]])
+            rows = tmatch.linear_sum_assignment(costs).reshape(2, 4, 50).unbind(0)
+        loss, _ = detr3d.detr_loss(out, on["labels"], on["boxes_2d"], on["boxes_3d"],
+                                   on["valid"], row_to_col=rows)
+        loss.backward()
+        results[dtype] = (
+            {k: out[k].detach().double().cpu() for k in ("logits", "boxes_2d", "boxes_3d")},
+            float(loss.detach()), {n: p.grad.double().cpu() for n, p in model.named_parameters()
+                                   if p.grad is not None})
+    (out_ref, loss_ref, grad_ref), (out_g, loss_g, grad_g) = (results[torch.float64],
+                                                              results[torch.float32])
+    out_bar, grad_bar = (2e-4, 2e-3) if deformable else (2e-5, 5e-4)
+    for key, value in out_ref.items():
+        err = float((out_g[key] - value).abs().max() / value.abs().max())
+        assert err <= out_bar, (key, err)
+    assert abs(loss_g - loss_ref) <= out_bar * abs(loss_ref), (loss_g, loss_ref)
+    assert set(grad_g) == set(grad_ref)
+    largest = max(float(g.abs().max()) for g in grad_ref.values())
+    for name, value in grad_ref.items():
+        scale = largest if name.endswith("key.bias") else float(value.abs().max())
+        err = float((grad_g[name] - value).abs().max()) / scale
+        assert err <= grad_bar, (name, err)
 
 
 @pytest.mark.gpu

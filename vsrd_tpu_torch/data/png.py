@@ -2,7 +2,8 @@
 
 Reads 8-bit, non-interlaced greyscale, greyscale + alpha, RGB and RGBA PNGs
 as ``PIL.Image.open`` + ``np.asarray`` give them (``[H, W]`` for grey, else
-``[H, W, C]``, uint8): the IDAT chunks are inflated with the standard
+``[H, W, C]``, uint8; ``read_rgb`` as ``.convert("RGB")`` gives them, for
+the detector leg): the IDAT chunks are inflated with the standard
 library's ``zlib``, then the five scanline filters are reversed by
 ``png_filters.cpp``, compiled with g++ on first use into the port's build
 directory as ``data/native.py`` compiles its source.
@@ -92,6 +93,17 @@ def read_png(filename: str) -> np.ndarray:
     pixels = unfilter(zlib.decompress(b"".join(idat)), height, width * channels, channels)
     return pixels.reshape(height, width) if channels == 1 else pixels.reshape(
         height, width, channels)
+
+
+def read_rgb(filename: str) -> np.ndarray:
+    """A PNG as ``Image.open(filename).convert("RGB")`` gives it: ``[H, W,
+    3]`` uint8, grey replicated into the three channels, alpha dropped."""
+    pixels = read_png(filename)
+    if pixels.ndim == 2:
+        pixels = pixels[..., None]
+    if pixels.shape[-1] <= 2:                     # grey, grey + alpha
+        return np.repeat(pixels[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(pixels[..., :3])
 
 
 def read_image(filename: str) -> np.ndarray:

@@ -10,6 +10,8 @@ the soft masks that come out are the optimization's only supervision:
 * ``resize_nearest``: ``cv2.resize(..., INTER_NEAREST)``, source pixel
   ``floor(x * src / dst)``; ``resize_linear`` (the image, read only for the
   photometric branch): ``cv2.resize(..., INTER_LINEAR)`` of a float image;
+  ``resize_pil_bilinear`` (the detector's images): PIL's ``Image.resize(...,
+  BILINEAR)`` of a uint8 image;
 * ``external_contours``: ``cv2.findContours(RETR_EXTERNAL,
   CHAIN_APPROX_SIMPLE)``, the outer borders of the 8-connected components
   that touch the outer background, each traced by Suzuki-Abe border
@@ -87,6 +89,60 @@ def resize_linear(image: np.ndarray, size) -> np.ndarray:
     rows = image[:, x0] * a0[(slice(None), *extra)] + image[:, x1] * a1[(slice(None), *extra)]
     return (rows[y0] * b0[(slice(None), None, *extra)]
             + rows[y1] * b1[(slice(None), None, *extra)])
+
+
+_PIL_PRECISION_BITS = 22      # Pillow's 8-bit resampling: 32 - 8 - 2
+
+
+def _pil_bilinear_taps(src: int, dst: int):
+    """Pillow's bilinear taps along one axis (``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc``): per output pixel, ``ksize`` source indices
+    and their coefficients in 22-bit fixed point. On a shrink the triangle
+    widens by the scale; taps past a pixel's window weigh 0."""
+    scale = src / dst
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(dst) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)   # C casts truncate
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), src) - xmin
+    x = np.arange(ksize)[None, :]
+    inside = x < xmax[:, None]
+    w = np.maximum(1.0 - np.abs((x + xmin[:, None] - center[:, None] + 0.5) / filterscale), 0.0)
+    w = np.where(inside, w, 0.0)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(total != 0.0, w / np.where(total != 0.0, total, 1.0), w)
+    fixed = np.where(w < 0, -0.5 + w * (1 << _PIL_PRECISION_BITS),
+                     0.5 + w * (1 << _PIL_PRECISION_BITS)).astype(np.int64)
+    index = np.minimum(xmin[:, None] + x, src - 1)
+    return index, np.where(inside, fixed, 0)
+
+
+def _pil_pass(pixels: np.ndarray, axis: int, size: int) -> np.ndarray:
+    """One of Pillow's two passes over ``axis`` of a uint8 image: the
+    fixed-point sum rounded by its half bit, shifted and clipped to uint8."""
+    index, coef = _pil_bilinear_taps(pixels.shape[axis], size)
+    taken = np.take(pixels, index, axis=axis).astype(np.int64)   # axis -> (size, ksize)
+    shape = [1] * taken.ndim
+    shape[axis], shape[axis + 1] = coef.shape
+    acc = (taken * coef.reshape(shape)).sum(axis=axis + 1) + (1 << (_PIL_PRECISION_BITS - 1))
+    return np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_pil_bilinear(image: np.ndarray, size) -> np.ndarray:
+    """``Image.fromarray(image).resize((W, H), Image.BILINEAR)`` of a uint8
+    image ``[H, W(, C)]``: Pillow's convolution resampling, whose triangle
+    filter widens by the scale factor on a shrink (so it is not OpenCV's
+    INTER_LINEAR, ``resize_linear``), a horizontal pass then a vertical one
+    with 22-bit fixed-point coefficients and a uint8 clip between them; an
+    axis of unchanged size is not resampled."""
+    out_h, out_w = int(size[0]), int(size[1])
+    pixels = np.asarray(image, np.uint8)
+    if pixels.shape[1] != out_w:
+        pixels = _pil_pass(pixels, 1, out_w)
+    if pixels.shape[0] != out_h:
+        pixels = _pil_pass(pixels, 0, out_h)
+    return pixels.copy() if pixels is image else pixels
 
 
 def _trace_outer_border(flat: bytes, width: int, start: int) -> list[int]:

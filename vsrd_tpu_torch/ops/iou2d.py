@@ -1,4 +1,4 @@
-"""2D box DIoU, DIoU loss and smooth L1 (boxes are ``(x0, y0, x1, y1)``).
+"""2D box IoU, DIoU, DIoU loss and smooth L1 (boxes are ``(x0, y0, x1, y1)``).
 
 Counterpart of ``vsrd_tpu/ops/iou2d.py``.
 """
@@ -13,16 +13,36 @@ def box_area(boxes):
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
-def distance_box_iou(boxes1, boxes2, epsilon: float = 1e-7):
-    """Pairwise DIoU ``[..., N, 4] x [..., M, 4] -> [..., N, M]``."""
+def _pairwise_inter_union(boxes1, boxes2):
     area1 = box_area(boxes1)
     area2 = box_area(boxes2)
     lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
     rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    union = area1[..., :, None] + area2[..., None, :] - inter
-    iou = inter / (union + epsilon)
+    return inter, area1[..., :, None] + area2[..., None, :] - inter
+
+
+def box_iou(boxes1, boxes2, epsilon: float = 0.0):
+    """Pairwise IoU ``[..., N, 4] x [..., M, 4] -> [..., N, M]``."""
+    inter, union = _pairwise_inter_union(boxes1, boxes2)
+    return inter / (union + epsilon)
+
+
+def elementwise_box_iou(boxes1, boxes2, epsilon: float = 1e-7):
+    """Elementwise IoU over matching leading shapes ``[..., 4]``."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area1 + area2 - inter + epsilon)
+
+
+def distance_box_iou(boxes1, boxes2, epsilon: float = 1e-7):
+    """Pairwise DIoU ``[..., N, 4] x [..., M, 4] -> [..., N, M]``."""
+    iou = box_iou(boxes1, boxes2, epsilon)
 
     lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
     rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
@@ -36,14 +56,7 @@ def distance_box_iou(boxes1, boxes2, epsilon: float = 1e-7):
 
 def distance_box_iou_loss(boxes1, boxes2, epsilon: float = 1e-7):
     """Elementwise DIoU loss over matching leading shapes ``[..., 4]``."""
-    area1 = box_area(boxes1)
-    area2 = box_area(boxes2)
-    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
-    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
-    wh = torch.clamp(rb - lt, min=0.0)
-    inter = wh[..., 0] * wh[..., 1]
-    iou = inter / (area1 + area2 - inter + epsilon)
-
+    iou = elementwise_box_iou(boxes1, boxes2, epsilon)
     lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
     rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
     diag = torch.sum(torch.square(rb - lt), dim=-1) + epsilon

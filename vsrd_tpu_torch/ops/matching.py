@@ -127,10 +127,12 @@ def jv_assignment(cost: torch.Tensor) -> torch.Tensor:
     its launches in ``jv_assignment.launches``."""
     from ..rendering.field_kernels import build_library
 
+    if cost.ndim < 2 or cost.shape[-2] != cost.shape[-1] or not 1 <= cost.shape[-1] <= JV_MAX_N:
+        raise ValueError(f"the JV kernel takes square costs [..., n, n] with 1 <= n <= "
+                         f"{JV_MAX_N}, not {tuple(cost.shape)} (so DETR's num_queries is at most "
+                         f"{JV_MAX_N} on a card)")
     if cost.device.type != "cuda":
         raise ValueError(f"the JV kernel runs on CUDA tensors, not {cost.device}")
-    if cost.ndim < 2 or cost.shape[-2] != cost.shape[-1] or not 1 <= cost.shape[-1] <= JV_MAX_N:
-        raise ValueError(f"square costs [..., n, n] with 1 <= n <= {JV_MAX_N} expected")
     n = cost.shape[-1]
     lead = cost.shape[:-2]
     flat = cost.detach().to(torch.float32).reshape(-1, n, n).contiguous()

@@ -17,8 +17,9 @@ Usage:
     torchrun --nproc-per-node 4 -m vsrd_tpu_torch.scripts.main --config ... --train --launcher torchrun
 
 ``--device cpu`` runs on the CPU through the kernels' plain twins (at small
-sizes). The diagnostic image panels of the JAX driver are not ported;
-scalars go to tensorboardX when it is installed.
+sizes). Scalars go to tensorboardX when it is installed, and at checkpoints
+that fall on ``image_intervals`` the diagnostic image panels
+(``visualization/panels.py``) too.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from ..pipeline import sharded
 from ..utils import convert
 from ..utils.meters import ProgressMeter, StopWatch
 from ..utils.saver import Saver, has_final_checkpoint
+from ..visualization import panels
 
 try:
     from tensorboardX import SummaryWriter
@@ -157,6 +159,7 @@ class _FrameJob:
     def save_and_log(self, step, params, scalars, cfg, config, meters, logger, opt_state=None):
         """``params``/``scalars`` are this frame's slices (no frame axis)."""
         scalar_every = config.get("logging", {}).get("scalar_intervals", 50)
+        image_every = config.get("logging", {}).get("image_intervals", 500)
         jax_params = convert.params_to_jax(params)
         entries = dict(
             step=np.asarray(step - 1),
@@ -177,6 +180,12 @@ class _FrameJob:
                 for name, values in scalars.items():
                     self.writer.add_scalar(f"scalars/{name}", float(values[offset]),
                                            base + offset)
+            if step % image_every == 0:
+                # GT masks, wireframes and ray dots per view, the predicted
+                # masks and wireframes, the BEV
+                panels.write_panels(
+                    self.writer, panels.diagnostic_panels(params, self.frame, step - 1, cfg),
+                    step)
         logger.info(
             f"[{self.image_filename}] step {step}/{cfg.num_steps} "
             f"loss={float(scalars['loss'][-1]):.4f} "

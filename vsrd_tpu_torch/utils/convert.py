@@ -78,3 +78,78 @@ def adam_state_to_jax(state):
         "nu": params_to_jax(state["nu"]),
         "count": np.asarray(int(state["count"]), np.int32),
     }
+
+
+# ---------------------------------------------------------------------------
+# the detector: a flax parameter tree <-> the port's state_dict
+# ---------------------------------------------------------------------------
+
+_MHA = "MultiHeadDotProductAttention"
+
+
+def _flat_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _flat_paths(value, prefix + (str(key),))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def detector_params_from_jax(flax_params, device: torch.device | str = "cuda"):
+    """A flax ``DETR3D``/``DeformableDETR3D`` parameter tree as numpy (with
+    or without its top-level ``"params"``) -> the port's ``state_dict``:
+    ``Conv`` kernels HWIO -> OIHW, ``Dense`` kernels ``[in, out]`` ->
+    ``[out, in]``, attention kernels ``[in, heads, head_dim]`` (query, key,
+    value) and ``[heads, head_dim, out]`` (out) -> ``Linear`` weights with
+    the heads flattened, norm scales -> ``weight``; names keep their paths."""
+    tree = flax_params.get("params", flax_params)
+    state = {}
+    for path, leaf in _flat_paths(tree):
+        *module, name = path
+        leaf = leaf.astype(np.float32)
+        if name == "kernel":
+            if leaf.ndim == 4:
+                leaf = leaf.transpose(3, 2, 0, 1)
+            elif leaf.ndim == 3 and module[-1] == "out":
+                leaf = leaf.reshape(-1, leaf.shape[-1]).T
+            elif leaf.ndim == 3:
+                leaf = leaf.reshape(leaf.shape[0], -1).T
+            else:
+                leaf = leaf.T
+            name = "weight"
+        elif name == "bias":
+            leaf = leaf.reshape(-1)
+        elif name == "scale":
+            name = "weight"
+        state[".".join([*module, name])] = torch.as_tensor(np.ascontiguousarray(leaf),
+                                                           device=device)
+    return state
+
+
+def detector_params_to_jax(state_dict, num_heads: int):
+    """The port's detector ``state_dict`` -> the flax parameter tree
+    ``{"params": {...}}`` as numpy, the inverse of
+    ``detector_params_from_jax`` (``num_heads`` splits the attention
+    kernels). The port's detector checkpoints hold this tree."""
+    params = {}
+    for key, tensor in state_dict.items():
+        *module, name = key.split(".")
+        leaf = tensor.detach().cpu().numpy()
+        attention = len(module) >= 2 and module[-2].startswith(_MHA)
+        if name == "weight" and leaf.ndim == 4:
+            leaf, name = leaf.transpose(2, 3, 1, 0), "kernel"
+        elif name == "weight" and leaf.ndim == 2 and attention and module[-1] == "out":
+            leaf, name = leaf.T.reshape(num_heads, -1, leaf.shape[0]), "kernel"
+        elif name == "weight" and leaf.ndim == 2 and attention:
+            leaf, name = leaf.T.reshape(leaf.shape[1], num_heads, -1), "kernel"
+        elif name == "weight" and leaf.ndim == 2:
+            leaf, name = leaf.T, "kernel"
+        elif name == "weight":
+            name = "scale"
+        elif name == "bias" and attention and module[-1] != "out":
+            leaf = leaf.reshape(num_heads, -1)
+        node = params
+        for part in module:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(leaf)
+    return {"params": params}

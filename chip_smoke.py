@@ -104,7 +104,27 @@ Phases (any failure exits non-zero):
    and on (every field launch of the run masked, finite losses, all
    instances matched), the median ms/step of each phase off, on at tile 128
    and on at 256, in turns, with the kept shares; then FRAMES stacked
-   16-instance frames with the skip on, and their ms/step off and on.
+   16-instance frames with the skip on, and their ms/step off and on;
+15. sharded step and library (its own ``[time]`` line): (a) four gloo
+   processes (this script again, ``--sharded-child RANK PORT DIR``) share the
+   card as dp=2 x sp=2 (``pipeline/sharded.py``), two stacked full-width
+   frames per dp rank, 500 of the 1000 rays per sp rank, ``deterministic=True``
+   and one ray schedule; from states this process pre-ran (steps 0-2 of
+   the single-process step) each rank takes its sp-averaged gradients and
+   one step in each phase, which must agree with the single-process F=2
+   step on the same two frames (SHARDED_SCALAR_BAR, SHARDED_PARAM_BAR,
+   SHARDED_GRAD_BAR), the sp ranks of a group
+   bit for bit, with K4a, K4c and K4b launched once a step in every rank;
+   then SHARDED_TIMED timed steps per phase beside the single-process step
+   on all four frames (a record: the ranks share the SMs). A child that
+   fails, or hangs past its ``deadline`` (exit 124), fails the phase. (b)
+   the library on the card against the port's own functions in float64
+   on the CPU (LIBRARY_BARS), each timed on events: ``PlaneSweepStereo``
+   (a target and 2 sources of [1, 32, 94, 352], 64 hypotheses over 1-100
+   m), ``SpatialPropagation2d`` (k=3, 10 steps, [1, 1, 376, 1408]),
+   ``forward_warping`` ([1, 3, 376, 1408]), ``sinkhorn_knopp`` ([50, 8400]),
+   ``PackingBlock`` / ``UnpackingBlock`` (64 channels on [1, 64, 188, 704])
+   and six losses on [8, 1, 376, 1408] maps.
 
 The second-to-last line is a JSON object with one entry per kernel and
 mode of the paths: its launches in its path (K3 and K4b with the residual
@@ -125,7 +145,9 @@ launches of phase 14 have entries of their own ("group skip, N=16/32"):
 their launches and ``skip_launches`` are the masked launches of their mode
 in the skip slice (K1-K3, 24 instances) or the batched skip slice (K4a-c,
 16 instances), beside their time unmasked and the mask's kept share; their
-bound counts the kept point-instances only. The last line is ``{"ok":
+bound counts the kept point-instances only. The entries of K4a, K4c
+(residual) and K4b (box-only) also hold phase 15's launches by rank
+(``sharded_launches``, ``sharded_rdf_launches``). The last line is ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -1829,7 +1851,442 @@ def skip_phase(card: str, cfg) -> dict:
     return {"report": report, "slices": slices}
 
 
+# ---- phase 15: the dp x sp sharded step, and the library on the card ----
+SHARDED_DP, SHARDED_SP = 2, 2
+SHARDED_FRAMES = 4                # two stacked frames per dp rank
+SHARDED_WARMUP = 2
+SHARDED_PHASES = {"warmup": 1, "residual": SHARDED_WARMUP + 1}   # the compared steps
+SHARDED_TIMED = 6                 # timed steps per phase, the first dropped
+SHARDED_SEED = 7
+SHARDED_DEADLINE = 300.0          # s for a child's rendezvous, frames and first step
+# sharded against single-process on the same stacked frames: per-frame
+# scalars, relative; params after the step, over max(leaf scale, 1); the
+# sp-averaged gradients relative to each leaf's own scale, which holds
+# every leaf whatever its learning rate (the embeddings' 1e-3 and the
+# hypernetwork's 1e-4 move their params by less than the params' bar).
+# All are the same per-ray arithmetic; only the sums over rays (two
+# partial sums and an all-reduce) and the weight-gradient sums of K4c (over
+# 500 points per ray slice instead of 1000) take another order. A
+# collective that does not carry the cotangent back gives half the
+# ray-local terms' gradient, an error of order 1.
+SHARDED_SCALAR_BAR = 1e-4
+SHARDED_PARAM_BAR = 1e-4
+SHARDED_GRAD_BAR = 1e-4
+SHARDED_NAMES = ("loss", "silhouette_loss", "eikonal_loss", "iou_projection_loss",
+                 "l1_projection_loss")
+
+
+def sharded_cfg():
+    from vsrd_tpu_torch.pipeline import optimize as opt
+
+    return opt.OptimizationConfig(num_steps=40, warmup_steps=SHARDED_WARMUP, num_rays=1000,
+                                  num_samples=100, deterministic=True, checkpoint_interval=40,
+                                  metric_interval=40)
+
+
+def _tree_to(tree, device):
+    from vsrd_tpu_torch.pipeline import optimize as opt
+
+    return opt.tree_map(lambda t: t.to(device).clone(), tree)
+
+
+def _tree_slice(tree, frames):
+    from vsrd_tpu_torch.pipeline import optimize as opt
+
+    return opt.tree_map(lambda t: t[frames.start:frames.stop].clone(), tree)
+
+
+def sharded_gradients(params, frames, step: int, cfg, rays, sp_group=None) -> list:
+    """The step's gradients from ``params`` (averaged over ``sp_group``
+    where given, as ``train_step`` averages them), on the host."""
+    import torch
+
+    from vsrd_tpu_torch.pipeline import optimize as opt
+
+    leaves = [t.requires_grad_() for _, t in opt.tree_leaves(params)]
+    total, _ = opt.compute_loss(params, frames, step, cfg, step >= cfg.warmup_steps,
+                                ray_indices=rays, sp_group=sp_group)
+    grads = torch.autograd.grad(total.sum(), leaves, allow_unused=True)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    if sp_group is not None:
+        grads = opt.sp_mean_gradients(grads, sp_group)
+    return [None if g is None else g.cpu() for g in grads]
+
+
+def grad_err(got, want) -> float:
+    """max |got - want| over max |want| of one leaf's gradient (0 where both
+    are absent; 1 where only one is)."""
+    if got is None or want is None:
+        return 0.0 if got is None and want is None else 1.0
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale > 0 else float(got.abs().max())
+
+
+def sharded_child(rank: int, port: int, workdir: str) -> None:
+    """One process of the dp x sp world on the shared card (started by
+    ``sharded_phase`` as ``chip_smoke.py --sharded-child RANK PORT DIR``):
+    its two frames, the parent's states, the sp-averaged gradients and one
+    sharded step of each phase from them, then the timed steps; writes
+    ``rank<R>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from vsrd_tpu_torch.pipeline import optimize as opt, sharded
+    from vsrd_tpu_torch.rendering import field_kernels as fk
+    from vsrd_tpu_torch.utils.watchdog import deadline
+
+    torch.cuda.set_device(0)
+    cfg = sharded_cfg()
+    out = {}
+    launchers = {"K4a": fk.field_forward, "K4c": fk.field_backward, "K4b": fk.field_dir_forward}
+
+    def state_of(phase):
+        state = data["states"][phase]
+        params = _tree_to(_tree_slice(state["params"], local), "cuda")
+        opt_state = {k: _tree_to(_tree_slice(state[k], local), "cuda") for k in ("mu", "nu")}
+        opt_state["count"] = state["count"]
+        return params, opt_state
+
+    with deadline(SHARDED_DEADLINE, f"sharded rank {rank}"):
+        fk.build_library()        # built by the parent: this loads it
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=SHARDED_DP * SHARDED_SP, rank=rank)
+        groups = sharded.make_groups(SHARDED_DP, SHARDED_SP)
+        local = groups.frame_range(SHARDED_FRAMES)
+        frames = sharded.stack_frames(synthetic_frames(list(local), "cuda"))
+        states_path = os.path.join(workdir, "states.pt")
+        while not os.path.exists(states_path):
+            time.sleep(0.2)
+        data = torch.load(states_path)
+        rays = data["schedule"][local.start:local.stop].cuda()
+        step_fn = sharded.make_sharded_train_step(groups, cfg)
+        for phase, step in SHARDED_PHASES.items():
+            out[f"grads {phase}"] = sharded_gradients(state_of(phase)[0], frames, step, cfg,
+                                                      rays, groups.sp_group)
+        fk.reset_launch_counts()
+        for phase, step in SHARDED_PHASES.items():
+            params, opt_state = state_of(phase)
+            scalars = step_fn(params, opt_state, frames, step, SHARDED_SEED, ray_indices=rays)
+            out[f"scalars {phase}"] = {k: scalars[k].cpu() for k in SHARDED_NAMES}
+            out[f"params {phase}"] = _tree_to(params, "cpu")
+        out["launches"] = {name: (fn.batched_launches, fn.rdf_launches)
+                           for name, fn in launchers.items()}
+        times = {}
+        for phase, step in SHARDED_PHASES.items():
+            params, opt_state = state_of(phase)
+            samples = []
+            for _ in range(SHARDED_TIMED):
+                dist.barrier()
+                start = time.perf_counter()
+                step_fn(params, opt_state, frames, step, SHARDED_SEED,
+                        ray_indices=rays)["loss"].cpu()
+                samples.append((time.perf_counter() - start) * 1e3)
+            times[phase] = statistics.median(samples[1:])
+        out["launches all"] = {name: (fn.batched_launches, fn.rdf_launches)
+                               for name, fn in launchers.items()}
+        out["times"] = times
+        out["layout"] = (groups.dp_index, groups.sp_index,
+                         dist.get_process_group_ranks(groups.sp_group))
+        torch.save(out, os.path.join(workdir, f"rank{rank}.tmp"))
+        os.replace(os.path.join(workdir, f"rank{rank}.tmp"),
+                   os.path.join(workdir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(card: str) -> dict:
+    """Phase 15(a): the dp=2 x sp=2 sharded step at full width, four gloo
+    processes on this one card, against the single-process batched step
+    (see the module docstring). Returns each rank's launches and the
+    timings."""
+    import numpy as np
+    import torch
+
+    from vsrd_tpu_torch.pipeline import optimize as opt, sharded
+
+    cfg = sharded_cfg()
+    world = SHARDED_DP * SHARDED_SP
+    workdir = tempfile.mkdtemp(prefix="vsrd_sharded_")
+    port = _free_port()
+    # the children start first: their CUDA start-up and frame builds
+    # overlap the parent's frames and pre-run steps
+    logs = [open(os.path.join(workdir, f"rank{rank}.log"), "w") for rank in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-child",
+                               str(rank), str(port), workdir], stdout=log, stderr=log)
+             for rank, log in enumerate(logs)]
+    try:
+        frames = synthetic_frames(list(range(SHARDED_FRAMES)), "cuda")
+        rng = np.random.default_rng(SHARDED_SEED)
+        schedule = torch.stack([f.candidate_indices[torch.from_numpy(rng.choice(
+            f.candidate_indices.shape[0], cfg.num_rays, replace=False)).cuda()] for f in frames])
+        batch = sharded.stack_frames(frames)
+        # pre-run single-process steps 0..2 on all four frames: the compared
+        # steps start from distinct boxes (no step-0 tie), in each phase
+        optimizer = opt.Adam(cfg)
+        params = opt.init_params_batched(SHARDED_SEED, SHARDED_FRAMES, 8, cfg, device="cuda")
+        opt_state = optimizer.init(params)
+        snapshots = {}
+        for step in range(max(SHARDED_PHASES.values())):
+            opt.train_step(params, opt_state, batch, step, cfg, optimizer, ray_indices=schedule)
+            for phase, at in SHARDED_PHASES.items():
+                if at == step + 1:
+                    snapshots[phase] = {"params": _tree_to(params, "cpu"),
+                                        "mu": _tree_to(opt_state["mu"], "cpu"),
+                                        "nu": _tree_to(opt_state["nu"], "cpu"),
+                                        "count": opt_state["count"]}
+        torch.save({"schedule": schedule.cpu(), "states": snapshots},
+                   os.path.join(workdir, "states.tmp"))
+        os.replace(os.path.join(workdir, "states.tmp"), os.path.join(workdir, "states.pt"))
+        # the single-process reference: each dp rank's two frames stacked
+        reference = {}
+        for index in range(SHARDED_DP):
+            local = range(index * 2, index * 2 + 2)
+            sub = sharded.stack_frames(frames[local.start:local.stop])
+            for phase, step in SHARDED_PHASES.items():
+                state = snapshots[phase]
+                p = _tree_to(_tree_slice(state["params"], local), "cuda")
+                s = {k: _tree_to(_tree_slice(state[k], local), "cuda") for k in ("mu", "nu")}
+                s["count"] = state["count"]
+                rays = schedule[local.start:local.stop]
+                grads = sharded_gradients(p, sub, step, cfg, rays)
+                scalars = opt.train_step(p, s, sub, step, cfg, optimizer, ray_indices=rays)
+                reference[index, phase] = ({k: scalars[k].cpu() for k in SHARDED_NAMES},
+                                           _tree_to(p, "cpu"), grads)
+        # a child that fails or hangs (cut by its deadline, exit 124) fails
+        # the phase at once; the others are killed below
+        while any(proc.poll() is None for proc in procs):
+            if any(proc.poll() not in (None, 0) for proc in procs):
+                break
+            time.sleep(0.2)
+        for rank, (proc, log) in enumerate(zip(procs, logs)):
+            log.close()
+            if proc.poll() not in (None, 0):
+                with open(os.path.join(workdir, f"rank{rank}.log")) as f:
+                    for line in f.read().splitlines()[-30:]:
+                        print(f"[sharded] rank {rank}: {line}", flush=True)
+                fail(f"sharded rank {rank} exited with {proc.returncode}")
+        outputs = [torch.load(os.path.join(workdir, f"rank{rank}.pt")) for rank in range(world)]
+        # the single-process step's time on all four frames, in each phase
+        single_ms = {}
+        for phase, step in SHARDED_PHASES.items():
+            state = snapshots[phase]
+            p = _tree_to(state["params"], "cuda")
+            s = {k: _tree_to(state[k], "cuda") for k in ("mu", "nu")}
+            s["count"] = state["count"]
+            samples = []
+            for _ in range(SHARDED_TIMED):
+                start = time.perf_counter()
+                opt.train_step(p, s, batch, step, cfg, optimizer,
+                               ray_indices=schedule)["loss"].cpu()
+                samples.append((time.perf_counter() - start) * 1e3)
+            single_ms[phase] = statistics.median(samples[1:])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    worst = {"scalars": 0.0, "params": 0.0, "grads": 0.0}
+    for rank, out in enumerate(outputs):
+        dp_index, sp_index, members = out["layout"]
+        if (dp_index, sp_index) != (rank // SHARDED_SP, rank % SHARDED_SP) or members != [
+                dp_index * SHARDED_SP + i for i in range(SHARDED_SP)]:
+            fail(f"sharded rank {rank}: layout {out['layout']}")
+        for phase in SHARDED_PHASES:
+            want_scalars, want_params, want_grads = reference[dp_index, phase]
+            rels = {}
+            for name in SHARDED_NAMES:
+                got, want = out[f"scalars {phase}"][name], want_scalars[name]
+                if not torch.isfinite(got).all():
+                    fail(f"sharded rank {rank} {phase}: non-finite {name} {got.tolist()}")
+                rels[name] = float(((got - want).abs() / want.abs().clamp(min=1e-6)).max())
+            want_leaves = dict(opt.tree_leaves(want_params))
+            param_rel = max(err(value, want_leaves[path])
+                            for path, value in opt.tree_leaves(out[f"params {phase}"]))
+            grad_rel = max(grad_err(got, want)
+                           for got, want in zip(out[f"grads {phase}"], want_grads))
+            worst["scalars"] = max(worst["scalars"], *rels.values())
+            worst["params"] = max(worst["params"], param_rel)
+            worst["grads"] = max(worst["grads"], grad_rel)
+            print(f"[sharded] rank {rank} {phase}: loss {out[f'scalars {phase}']['loss'].tolist()}"
+                  f" (single process {want_scalars['loss'].tolist()}); rel err of the scalars "
+                  f"{max(rels.values()):.3e} (worst {max(rels, key=rels.get)}), of the params "
+                  f"{param_rel:.3e}, of the sp-averaged gradients {grad_rel:.3e}", flush=True)
+            if sp_index:
+                # the sp ranks of a group take the same update, bit for bit
+                for (path, a), (_, b) in zip(opt.tree_leaves(out[f"params {phase}"]),
+                                             opt.tree_leaves(outputs[rank - 1][f"params {phase}"])):
+                    if not torch.equal(a, b):
+                        fail(f"sharded ranks {rank - 1} and {rank} {phase}: params {path} differ")
+        for name, (launched, rdf) in out["launches"].items():
+            if (launched, rdf) != (2, 0 if name == "K4b" else 1):
+                fail(f"sharded rank {rank}: {name} launched {launched} times ({rdf} with the "
+                     f"residual field) in the two compared steps (expected 2, "
+                     f"{0 if name == 'K4b' else 1})")
+    print(f"[sharded] worst rel err against the single-process step: scalars "
+          f"{worst['scalars']:.3e} (bar {SHARDED_SCALAR_BAR}), params {worst['params']:.3e} "
+          f"(bar {SHARDED_PARAM_BAR}), gradients {worst['grads']:.3e} (bar {SHARDED_GRAD_BAR})",
+          flush=True)
+    if not (worst["scalars"] <= SHARDED_SCALAR_BAR and worst["params"] <= SHARDED_PARAM_BAR
+            and worst["grads"] <= SHARDED_GRAD_BAR):
+        fail(f"the sharded step disagrees with the single-process step: {worst}")
+    times = {phase: [out["times"][phase] for out in outputs] for phase in SHARDED_PHASES}
+    for phase in SHARDED_PHASES:
+        print(f"[sharded] {phase}: median ms/step dp={SHARDED_DP} x sp={SHARDED_SP} (4 gloo "
+              f"processes sharing one card, 2 frames x 500 rays each) "
+              f"{[round(t, 2) for t in times[phase]]} by rank; single process, all "
+              f"{SHARDED_FRAMES} frames x 1000 rays, {single_ms[phase]:.2f}; the ranks share "
+              f"the card's SMs, so this is a record, not a scaling number; on {card}",
+              flush=True)
+    return {"launches": [out["launches all"] for out in outputs], "times": times,
+            "single_ms": single_ms, "worst": worst}
+
+
+# the library on the card against the port's own functions in float64 on
+# the CPU: max |card - cpu64| over max(max |cpu64|, 1e-6). Warps sample at
+# f32 pixel coordinates (about 2e-4 px at x = 1408), which moves a bilinear
+# sample by that much of the features' local slope; the forward warp's
+# normalized splat divides by each pixel's summed weight, so it is read
+# away from the image's border (LIBRARY_CROP), where that sum can be
+# small; a mean over 4.2M pixels or a 50-step Sinkhorn keeps ~1e-6; the
+# blocks' convolutions run in f32 (TF32 off, as the port sets it) over sums
+# of 27-18,432 products.
+LIBRARY_BARS = {"PlaneSweepStereo": 1e-3, "SpatialPropagation2d": 1e-4,
+                "forward_warping": 1e-3, "sinkhorn_knopp": 1e-4, "PackingBlock": 1e-4,
+                "UnpackingBlock": 1e-4, "losses": 1e-4}
+LIBRARY_REPEATS = 5
+LIBRARY_CROP = {"forward_warping": 8}      # border pixels left out of the error
+
+
+def library_cases():
+    """name -> (function of (inputs, module), inputs on the CPU in float32,
+    module factory or None): the shapes of phase 15(b)."""
+    import numpy as np
+    import torch
+
+    from vsrd_tpu_torch import losses, modules
+    from vsrd_tpu_torch.ops import warping
+
+    rng = np.random.default_rng(15)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    k = np.asarray(KITTI_K, np.float32)[None]
+
+    def camera(x, z):
+        e = np.eye(4, dtype=np.float32)[None].copy()
+        e[0, 0, 3], e[0, 2, 3] = x, z
+        return t(e)
+
+    # feature maps at a quarter of 376x1408 (pyramid level 2), smooth at a
+    # few pixels as a network's are
+    def smooth(shape):
+        noise = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return torch.nn.functional.avg_pool2d(noise, 5, 1, 2) * 2.0
+
+    views = [{"feature_maps": smooth((1, 32, 94, 352)), "intrinsic_matrices": t(k),
+              "extrinsic_matrices": camera(x, z), "scale": 2}
+             for x, z in ((0.0, 0.0), (-0.54, 0.0), (0.0, -1.0))]
+    sweep = modules.PlaneSweepStereo(depth_range=(1.0, 100.0), num_hypotheses=64)
+    # a smooth image and depth (a ground plane from 60 m at the top to 5 m
+    # at the bottom, rippled): the forward warp is then one to one
+    image = smooth((1, 3, 376, 1408)) * 0.1 + 0.5
+    rows = np.linspace(0.0, 1.0, 376)[:, None]
+    cols = np.linspace(0.0, 1.0, 1408)[None, :]
+    depth = t((60.0 - 55.0 * rows + 2.0 * np.sin(6.0 * cols) * rows)[None, None])
+    maps = t(rng.uniform(0.02, 0.98, size=(8, 1, 376, 1408)))
+    targets = t(rng.uniform(0.0, 1.0, size=(8, 1, 376, 1408)))
+    refs = t(rng.random((8, 3, 376, 1408)))
+
+    def loss_sum(x):
+        m, tg, r = x
+        return torch.stack([
+            losses.binary_cross_entropy(m, tg), losses.focal_loss(m, tg),
+            losses.tversky_loss(m, tg), losses.smoothness_loss(m, r),
+            losses.motion_smoothness_loss(m), losses.gaussian_nll(m, tg + 0.5, r[:, :1])])
+
+    return {
+        "PlaneSweepStereo": (lambda x, _: sweep(*x), views, None),
+        "SpatialPropagation2d": (
+            lambda x, _: modules.SpatialPropagation2d(3, 10)(*x),
+            [t(rng.random((1, 1, 376, 1408))), t(rng.random((1, 1, 3, 3, 376, 1408)))], None),
+        "forward_warping": (
+            lambda x, _: warping.forward_warping(x[0], x[1], x[2], x[2], x[3], x[4]),
+            [image, depth, t(k), camera(0.0, 0.0), camera(0.3, -1.0)], None),
+        "sinkhorn_knopp": (lambda x, _: modules.sinkhorn_knopp(*x, gamma=0.1, num_steps=50),
+                           [t(rng.random((50, 8400))), t(np.full(50, 168.0)),
+                            t(np.ones(8400))], None),
+        "PackingBlock": (lambda x, m: m(x[0]), [t(rng.normal(size=(1, 64, 188, 704)))],
+                         lambda: modules.PackingBlock(64, 64)),
+        "UnpackingBlock": (lambda x, m: m(x[0]), [t(rng.normal(size=(1, 64, 188, 704)))],
+                           lambda: modules.UnpackingBlock(64, 64)),
+        "losses": (lambda x, _: loss_sum(x), [maps, targets, refs], None),
+    }
+
+
+def _to(tree, device, dtype):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to(v, device, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, dtype)
+    return tree
+
+
+def library_phase(card: str) -> dict:
+    """Phase 15(b): each library function on the card (f32) against the
+    port's own function on the CPU in float64 on the same inputs, with its
+    time on CUDA events."""
+    import torch
+
+    report = {}
+    for name, (fn, inputs, make_module) in library_cases().items():
+        torch.manual_seed(0)
+        module = make_module() if make_module else None
+        with torch.no_grad():
+            if module is not None:
+                for p in module.parameters():      # off the identity init
+                    p.add_(torch.randn_like(p) * 0.05)
+            cpu = fn(_to(inputs, "cpu", torch.float64),
+                     module.to(torch.float64) if module is not None else None)
+            card_inputs = _to(inputs, "cuda", torch.float32)
+            card_module = module.to("cuda", torch.float32) if module is not None else None
+            out = fn(card_inputs, card_module)
+            torch.cuda.synchronize()
+            crop = LIBRARY_CROP.get(name, 0)
+            inner = (..., slice(crop, -crop or None), slice(crop, -crop or None))
+            got, want = out.double().cpu(), cpu
+            if crop:
+                got, want = got[inner], want[inner]
+            rel = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-6)
+            ms = event_ms(lambda: fn(card_inputs, card_module), LIBRARY_REPEATS)
+        if not torch.isfinite(out).all():
+            fail(f"library {name}: non-finite output on the card")
+        report[name] = {"shape": list(out.shape), "rel_err": rel, "event_ms": ms}
+        print(f"[library] {name} {list(out.shape)}: rel err {rel:.3e} against float64 on the "
+              f"CPU (bar {LIBRARY_BARS[name]}), {ms:.3f} ms events on {card}", flush=True)
+        del card_inputs, card_module, out
+        torch.cuda.empty_cache()
+    bad = {k: v["rel_err"] for k, v in report.items() if not v["rel_err"] <= LIBRARY_BARS[k]}
+    if bad:
+        fail(f"the library on the card disagrees with float64 beyond its bars: {bad}")
+    return report
+
+
 def main():
+    if sys.argv[1:2] == ["--sharded-child"]:
+        sharded_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     try:
         import torch
     except ImportError:
@@ -1945,6 +2402,10 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     skip = skip_phase(card, cfg)
+    start = time.perf_counter()
+    sharded_run = sharded_phase(card)
+    library = library_phase(card)
+    print(f"[time] sharded and library phase: {time.perf_counter() - start:.1f} s", flush=True)
 
     sources = {
         "K1": ("fused_forward.cu", f"{PALLAS}:111"),
@@ -1978,6 +2439,11 @@ def main():
                 "bound_by": entry["bound"][1],
                 "library_ms": None,
                 **({"epilogue_form_event_ms": entry["forms"]["epilogue"]} if "forms" in entry
+                   else {}),
+                # phase 15: each rank's launches, all with F=2, in the sharded run
+                **({"sharded_launches": [r[name][0] for r in sharded_run["launches"]],
+                    "sharded_rdf_launches": [r[name][1] for r in sharded_run["launches"]]}
+                   if name in ("K4a", "K4c", "K4b") and mode == ("box" if coarse else "rdf")
                    else {}),
             })
     # the masked launches (phase 14): every launch of the skip slices took a
@@ -2077,6 +2543,7 @@ def main():
             "near_criterion": entry["near_criterion"],
         })
     print(f"[render] {json.dumps(renders)}", flush=True)
+    print(f"[library] {json.dumps(library)}", flush=True)
     if not all(math.isfinite(k["ms"]) and math.isfinite(k["event_ms"]) for k in kernels):
         fail("a kernel time is not finite")
     print(f"[time] whole run: {time.perf_counter() - script_start:.1f} s", flush=True)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from vsrd_tpu_torch.models import box_parameters, hyper_field
-from vsrd_tpu_torch.pipeline import frame, optimize
+from vsrd_tpu_torch.pipeline import frame, optimize, sharded
 from vsrd_tpu_torch.utils import convert
 
 SMALL_FRAME = dict(num_views=2, image_size=(16, 24), num_instances=2, max_instances=2)
@@ -31,6 +31,8 @@ CALLS = {
     "build_frame_data": (frame.build_frame_data, _frame_arrays),
     "synthetic_frame": (frame.synthetic_frame, lambda: (0,)),
     "init_params_batched": (optimize.init_params_batched, lambda: (0, 2, 2, CFG)),
+    "init_sharded_state": (sharded.init_sharded_state,
+                           lambda: (0, 2, 2, CFG, sharded.make_groups())),
     "to_torch_tree": (convert.to_torch_tree, lambda: ({"a": np.ones(3)},)),
     "params_from_jax": (convert.params_from_jax,
                         lambda: ({"boxes": {"x": np.ones(2)}, "hyper": {"layers": []}},)),
@@ -145,3 +147,40 @@ def test_train_detector_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monk
     with pytest.raises(SystemExit, match="no prediction JSONs"):
         train_detector.main(argv + ["--device", "cpu"])
     assert read
+
+
+def test_the_sharded_entry_point_runs_on_the_card_with_nccl_by_default():
+    args = sharded._parse([])
+    assert (args.device, args.backend) == ("cuda", "nccl")
+
+
+def _library_calls():
+    from vsrd_tpu_torch import losses, modules
+    from vsrd_tpu_torch.models import encoders
+    from vsrd_tpu_torch.ops import warping
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(1, 2, 6, 8, generator=gen, dtype=torch.float64)
+    depth = 2.0 + torch.rand(1, 1, 6, 8, generator=gen, dtype=torch.float64)
+    k = torch.tensor([[[20.0, 0, 4], [0, 20.0, 3], [0, 0, 1]]], dtype=torch.float64)
+    e = torch.eye(4, dtype=torch.float64)[None]
+    view = {"feature_maps": x, "intrinsic_matrices": k, "extrinsic_matrices": e}
+    return {
+        "backward_warping": lambda: warping.backward_warping(x, depth, k, k, e, e),
+        "forward_warping": lambda: warping.forward_warping(x, depth, k, k, e, e),
+        "PlaneSweepStereo": lambda: modules.PlaneSweepStereo((2.0, 9.0), 4)(view, view),
+        "SpatialPropagation2d": lambda: modules.SpatialPropagation2d(3, 2)(
+            x, torch.rand(1, 2, 3, 3, 6, 8, generator=gen, dtype=torch.float64)),
+        "sinkhorn_knopp": lambda: modules.sinkhorn_knopp(x[0, 0], x[0, 0, :, 0], x[0, 0, 0]),
+        "smoothness_loss": lambda: losses.smoothness_loss(depth, x, reduction="none"),
+        "sinusoidal_encode": lambda: encoders.sinusoidal_encode(x[0, 0, :, :3]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_library_calls()))
+def test_library_functions_follow_their_inputs(name):
+    """The library makes no tensor on a device or in a dtype of its own:
+    float64 CPU inputs give float64 CPU outputs (as they give CUDA outputs
+    for CUDA inputs)."""
+    out = _library_calls()[name]()
+    assert out.device.type == "cpu" and out.dtype == torch.float64

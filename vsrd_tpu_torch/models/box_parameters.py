@@ -83,6 +83,43 @@ def decode_box_3d(locations, dimensions, orientations):
     return corners + locations[..., None, :]
 
 
+def _encode(boxes_3d):
+    """Corners [..., 8, 3] -> locations, full (width, height, length) and
+    the unit (cos, sin) of the yaw, from edge means in the evaluation
+    corner order."""
+    locations = torch.mean(boxes_3d, dim=-2)
+
+    def edge_mean(a, b):
+        return torch.mean(torch.linalg.vector_norm(boxes_3d[..., a, :] - boxes_3d[..., b, :],
+                                                   dim=-1), dim=-1)
+
+    widths = edge_mean([1, 2, 6, 5], [0, 3, 7, 4])
+    heights = edge_mean([4, 5, 6, 7], [0, 1, 2, 3])
+    lengths = edge_mean([1, 0, 4, 5], [2, 3, 7, 6])
+    dimensions = torch.stack([widths, heights, lengths], dim=-1)
+    direction = torch.mean(boxes_3d[..., [1, 0, 4, 5], :] - boxes_3d[..., [2, 3, 7, 6], :],
+                           dim=-2)
+    cos_sin = direction[..., [2, 0]]
+    cos_sin = cos_sin / torch.clamp(torch.linalg.vector_norm(cos_sin, dim=-1, keepdim=True),
+                                    min=1e-12)
+    return locations, dimensions, cos_sin
+
+
+def encode_box_3d(boxes_3d):
+    """Corners [..., 8, 3] -> (locations, half-dimensions, rotation matrices),
+    the inverse of ``decode_box_3d`` on boxes it made."""
+    locations, dimensions, cos_sin = _encode(boxes_3d)
+    return (locations, dimensions / 2.0,
+            rotation_matrix_y_from_cos_sin(cos_sin[..., 0], cos_sin[..., 1]))
+
+
+def encode_box_3d_yaw(boxes_3d):
+    """Corners [..., 8, 3] -> (locations, full dimensions, yaw angle), the
+    form prediction conversion writes."""
+    locations, dimensions, cos_sin = _encode(boxes_3d)
+    return locations, dimensions, torch.atan2(cos_sin[..., 1], cos_sin[..., 0])
+
+
 def decode_boxes(params: dict, location_range=DEFAULT_LOCATION_RANGE,
                  dimension_range=DEFAULT_DIMENSION_RANGE) -> dict:
     """Box parameters -> corners, locations, half-dimensions, rotations."""

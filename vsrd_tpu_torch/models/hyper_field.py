@@ -66,6 +66,13 @@ def init_hyper_field(
     return {"layers": layers}
 
 
+def init_hyper_radiance_field(generator: torch.Generator, **kwargs):
+    """The radiance twin of the distance field: the generated MLP emits 3
+    channels."""
+    kwargs.setdefault("final_channels", 3)
+    return init_hyper_field(generator, **kwargs)
+
+
 def _weight_norm(v, g):
     norms = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return v * (g[..., :, None] / norms)
@@ -104,3 +111,27 @@ def hypernetwork_apply(params, embeddings: torch.Tensor) -> torch.Tensor:
     last = layers[-1]
     w = _weight_norm(last["v"], last["g"])
     return torch.matmul(x, w.transpose(-2, -1)) + row(last["b"])
+
+
+def field_apply(weights: torch.Tensor, features: torch.Tensor, in_channels: int = 48,
+                out_channels_list: Sequence[int] = (16, 16, 16, 16),
+                final_channels: int = 1) -> torch.Tensor:
+    """Evaluate the generated MLP eagerly, for any ``final_channels``.
+
+    ``weights [*B, W]`` are the flattened per-instance weights and
+    ``features [*B, P, C]`` the encoded points; each layer is a batched
+    product with its ``[out, in + 1]`` block (bias last), with
+    parameter-free LayerNorm and exact GELU between layers. Returns ``[*B,
+    P, final_channels]``. (The field kernels evaluate the 1-channel
+    distance field; this is the plain form for any width.)"""
+    sizes, num_neurons = field_layer_sizes(in_channels, out_channels_list, final_channels)
+    x = features
+    start = 0
+    for index, ((c_in, c_out), count) in enumerate(zip(sizes, num_neurons)):
+        if index:
+            x = F.gelu(layer_norm(x))
+        w = weights[..., start:start + count].reshape(*weights.shape[:-1], c_out, c_in + 1)
+        start += count
+        x_h = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+        x = torch.einsum("...mn,...pn->...pm", w, x_h)
+    return x

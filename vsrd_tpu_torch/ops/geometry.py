@@ -1,8 +1,9 @@
-"""Geometric operations the loss uses: rotations, point transforms and box
-projection with front clipping.
+"""Geometric operations: rotations, homogeneous transforms, projection and
+backprojection, epipolar matrices, and box projection with front clipping.
 
-Counterpart of the same functions in ``vsrd_tpu/ops/geometry.py``,
-batched over leading dimensions instead of ``vmap``-ed.
+Counterpart of ``vsrd_tpu/ops/geometry.py``, batched over leading
+dimensions instead of ``vmap``-ed. Functions of tensors return tensors on
+their inputs' device and in their dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +22,25 @@ def _rotation_stack(rows) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def expand_to_4x4(matrices: torch.Tensor) -> torch.Tensor:
+    """Embed ``...x3x3`` (or smaller) matrices into homogeneous ``...x4x4``."""
+    *batch, rows, cols = matrices.shape
+    out = _eye(4, matrices).expand(*batch, 4, 4).clone()
+    out[..., :rows, :cols] = matrices
+    return out
+
+
+def skew_symmetric_matrix(vectors: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` -> the cross-product matrices ``[..., 3, 3]``."""
+    x, y, z = vectors.unbind(-1)
+    zero = torch.zeros_like(x)
+    return _rotation_stack([[zero, -z, y], [z, zero, -x], [-y, x, zero]])
+
+
 def rotation_matrix_x(angles) -> torch.Tensor:
     angles = torch.as_tensor(angles, dtype=torch.float32)
     c, s = torch.cos(angles), torch.sin(angles)
@@ -33,6 +53,76 @@ def rotation_matrix_y(angles) -> torch.Tensor:
     c, s = torch.cos(angles), torch.sin(angles)
     one, zero = torch.ones_like(c), torch.zeros_like(c)
     return _rotation_stack([[c, zero, s], [zero, one, zero], [-s, zero, c]])
+
+
+def rotation_matrix_z(angles) -> torch.Tensor:
+    angles = torch.as_tensor(angles)
+    if not angles.is_floating_point():
+        angles = angles.to(torch.float32)
+    c, s = torch.cos(angles), torch.sin(angles)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    return _rotation_stack([[c, -s, zero], [s, c, zero], [zero, zero, one]])
+
+
+def rotation_matrix(rotation_axes: torch.Tensor, rotation_angles: torch.Tensor) -> torch.Tensor:
+    """Axis-angle rotation (Rodrigues): axes ``[..., 3]``, angles ``[...]``."""
+    cos = torch.cos(rotation_angles)[..., None, None]
+    sin = torch.sin(rotation_angles)[..., None, None]
+    outer = rotation_axes[..., :, None] * rotation_axes[..., None, :]
+    return ((1.0 - cos) * outer + sin * skew_symmetric_matrix(rotation_axes)
+            + cos * _eye(3, rotation_axes))
+
+
+def translation_matrix(translation_vectors: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` -> homogeneous translations ``[..., 4, 4]``."""
+    *batch, _ = translation_vectors.shape
+    out = _eye(4, translation_vectors).expand(*batch, 4, 4).clone()
+    out[..., :3, 3] = translation_vectors
+    return out
+
+
+def essential_matrix(rotation_matrices: torch.Tensor,
+                     translation_vectors: torch.Tensor) -> torch.Tensor:
+    return skew_symmetric_matrix(translation_vectors) @ rotation_matrices
+
+
+def fundamental_matrix(essential_matrices: torch.Tensor, intrinsic_matrices_1: torch.Tensor,
+                       intrinsic_matrices_2: torch.Tensor) -> torch.Tensor:
+    inv1 = torch.linalg.inv(intrinsic_matrices_1)
+    inv2 = torch.linalg.inv(intrinsic_matrices_2)
+    return inv2.transpose(-2, -1) @ essential_matrices @ inv1
+
+
+def homogeneous(points: torch.Tensor, value: float = 1.0) -> torch.Tensor:
+    """Append a homogeneous coordinate along the last axis."""
+    return torch.cat([points, torch.full_like(points[..., :1], value)], dim=-1)
+
+
+def projection(coords: torch.Tensor, intrinsic_matrices: torch.Tensor,
+               extrinsic_matrices: torch.Tensor | None = None) -> torch.Tensor:
+    """Homogeneous world (or camera) coords ``[..., 4]`` -> ``[..., 3]``
+    pixel-space coords (x z, y z, z after K); the matrices broadcast over
+    the leading dimensions."""
+    if extrinsic_matrices is not None:
+        coords = torch.einsum("...mn,...n->...m", extrinsic_matrices, coords)
+    coords = coords[..., :-1] / coords[..., -1:]
+    return torch.einsum("...mn,...n->...m", intrinsic_matrices, coords)
+
+
+def backprojection(depth_maps: torch.Tensor, intrinsic_matrices: torch.Tensor,
+                   extrinsic_matrices: torch.Tensor | None = None) -> torch.Tensor:
+    """Depth maps ``[..., H, W]`` -> homogeneous world coords ``[..., H, W, 4]``."""
+    h, w = depth_maps.shape[-2:]
+    ys = torch.arange(h, dtype=depth_maps.dtype, device=depth_maps.device)
+    xs = torch.arange(w, dtype=depth_maps.dtype, device=depth_maps.device)
+    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
+    pixels = torch.stack([grid_x, grid_y, torch.ones_like(grid_x)], dim=-1)
+    rays = torch.einsum("...mn,hwn->...hwm", torch.linalg.inv(intrinsic_matrices), pixels)
+    points = homogeneous(rays * depth_maps[..., None])
+    if extrinsic_matrices is not None:
+        points = torch.einsum("...mn,...hwn->...hwm", torch.linalg.inv(extrinsic_matrices),
+                              points)
+    return points
 
 
 def rotation_matrix_y_from_cos_sin(cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -112,3 +202,20 @@ def clip_boxes_to_image(boxes: torch.Tensor, image_size) -> torch.Tensor:
     x = torch.clamp(boxes[..., 0], 0.0, float(width))
     y = torch.clamp(boxes[..., 1], 0.0, float(height))
     return torch.stack([x, y], dim=-1)
+
+
+def boxes_to_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """``[..., 2, 2]`` min/max boxes -> ``[..., 4]`` (x0, y0, x1, y1)."""
+    return boxes.reshape(*boxes.shape[:-2], 4)
+
+
+def rectification_from_extrinsic(extrinsic_matrix: torch.Tensor) -> torch.Tensor:
+    """Gravity rectification from one camera extrinsic ``[4, 4]``: a rotation
+    about x by the angle between the camera's y axis and the nearest
+    integer axis, signed by the x axis."""
+    rot = extrinsic_matrix[..., :3, :3]
+    x_axis, y_axis = rot[..., 0, :], rot[..., 1, :]
+    y_round = torch.round(y_axis)
+    angle = torch.arccos(torch.clamp(torch.sum(y_round * y_axis, dim=-1), -1.0, 1.0))
+    angle = angle * torch.sign(torch.sum(torch.linalg.cross(y_round, y_axis) * x_axis, dim=-1))
+    return rotation_matrix_x(angle)

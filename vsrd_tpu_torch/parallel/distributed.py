@@ -1,10 +1,13 @@
 """Multi-process runtime over ``torch.distributed``: initialization, frame
-sharding, object collectives and a rank-aware logger.
+sharding, object collectives, a differentiable all-reduce and a rank-aware
+logger.
 
 Counterpart of ``vsrd_tpu/parallel/distributed.py``. Labeling is
 embarrassingly parallel: each process takes a static round-robin share of
-the target frames and no gradient crosses processes, so the collectives
-here serve bookkeeping only. The rendezvous comes from torchrun's
+the target frames and no gradient crosses processes, so the object
+collectives here serve bookkeeping only. ``all_reduce_sum`` serves the
+ray-sharded step of ``pipeline/sharded.py``, whose loss sums across the
+processes of one frame. The rendezvous comes from torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) or from Slurm's (``SLURM_PROCID``, ``SLURM_NTASKS``,
 ``SLURM_LOCALID``, with ``MASTER_ADDR``/``MASTER_PORT`` or the launch node's
@@ -113,6 +116,32 @@ def all_gather_ragged(array: np.ndarray) -> list[np.ndarray]:
     out = [None] * process_count()
     dist.all_gather_object(out, array)
     return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group whose backward sums the cotangent over the
+    same group, as ``jax.lax.psum`` transposes to ``psum``."""
+
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        out = tensor.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` summed over ``group`` (a new tensor; the input is left as
+    it was). Differentiable: each process's gradient is the sum of every
+    process's cotangent, so a loss that every process computes alike from
+    the sum hands each process S times its own share (S the group's size),
+    and averaging the gradients over the group recovers the gradient of
+    the sum."""
+    return _AllReduceSum.apply(tensor, group)
 
 
 def barrier() -> None:

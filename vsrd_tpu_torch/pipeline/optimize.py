@@ -26,18 +26,29 @@ launches of one frame whatever F is, and the field goes through ONE launch
 of each kernel with a frame grid axis (K4a/K4c/K4b). The per-frame losses
 come back as ``[F]`` and are summed for the gradient; frames share the
 step's random stream and the Adam step count, as in the JAX package.
+
+Ray-sharded steps (``sp_group``, a ``torch.distributed`` process group of
+the processes that share one set of frames; ``pipeline/sharded.py`` makes
+them): each process renders its contiguous slice of the step's rays, the
+silhouette and eikonal means sum their numerators and denominators over
+the group with a differentiable all-reduce, the photometric loss is
+averaged over it, and the gradients are averaged over it before Adam, so
+that every process takes the same update as one process with all the rays.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import box_parameters, hyper_field
 from ..ops import geometry, iou2d, iou3d, matching, sampling
+from ..parallel.distributed import all_reduce_sum
 from ..rendering import field_kernels, renderer, scene
 from . import photometric
 from .frame import FrameData, ray_directions_at
@@ -261,9 +272,18 @@ def _at_target(x, frame: FrameData):
     return x[torch.arange(frame.num_frames, device=x.device), frame.target_index]
 
 
-def _masked_mean(values, mask, dim, epsilon=1e-12):
+def _masked_mean(values, mask, dim, epsilon=1e-12, group=None):
+    """Mean of ``values`` where ``mask`` holds, over ``dim``; with ``group``
+    the numerator and the denominator are summed over the group's
+    processes first (``jax.lax.psum`` in the JAX package), the numerator
+    differentiably."""
     mask = torch.broadcast_to(mask, values.shape).to(values.dtype)
-    return torch.sum(values * mask, dim=dim) / torch.clamp(torch.sum(mask, dim=dim), min=epsilon)
+    num = torch.sum(values * mask, dim=dim)
+    den = torch.sum(mask, dim=dim)
+    if group is not None:
+        num = all_reduce_sum(num, group)
+        den = all_reduce_sum(den, group)
+    return num / torch.clamp(den, min=epsilon)
 
 
 def _binary_cross_entropy(probs, targets, epsilon=1e-6):
@@ -286,10 +306,33 @@ def ray_order(directions):
     return torch.argsort(azimuth, dim=-1, stable=True)
 
 
+def fold_seed(seed: int, index: int) -> int:
+    """A seed for stream ``index`` of ``seed`` (``jax.random.fold_in``'s
+    role): a 31-bit hash of the pair, small enough for ``step_generator``."""
+    digest = hashlib.blake2b(f"{seed}:{index}".encode(), digest_size=4).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def sp_ray_slice(ray_idx, generator, group):
+    """This process's contiguous slice of ``ray_idx [(F,) R]``, ``R // S``
+    rays for a group of S (the last ``R % S`` rays are dropped, as the JAX
+    package's ``dynamic_slice`` drops them), and the render's generator for
+    this process: the step's stream folded with the rank in the group, so
+    that the processes draw different samples for different rays."""
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    local = ray_idx.shape[-1] // size
+    ray_idx = ray_idx[..., rank * local:(rank + 1) * local]
+    if generator is not None:
+        generator = torch.Generator(device=generator.device).manual_seed(
+            fold_seed(generator.initial_seed(), rank))
+    return ray_idx, generator
+
+
 def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
                  use_rdf: bool, generator: torch.Generator | None = None,
                  ray_indices: torch.Tensor | None = None,
-                 surface_indices: torch.Tensor | None = None):
+                 surface_indices: torch.Tensor | None = None,
+                 sp_group=None):
     """One forward pass: projection + silhouette (+ eikonal) losses.
 
     ``use_rdf`` selects the post-warmup phase (residual field + eikonal).
@@ -311,6 +354,15 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
     K2), and the weights come back in the original instance order. The
     projection losses, the photometric branch and the metrics keep the
     original order.
+
+    With ``sp_group`` (see the module docstring) the ray draw, made alike
+    on every process of the group from ``generator``, is cut to this
+    process's slice (``sp_ray_slice``; group skip's ``ray_order`` then sorts
+    the slice), the render and the photometric branch draw from the
+    process's own stream, and every loss comes back the same on every
+    process of the group. The eikonal mean is then a masked mean with an
+    all-ones mask summed over the group; with one process it stays
+    ``torch.mean``, so the single-process numbers do not move.
     """
     n = frame.max_instances
     device = frame.device
@@ -400,6 +452,9 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         ray_idx = torch.take_along_dim(frame.candidate_indices, cand_idx, dim=-1)
     else:
         ray_idx = ray_indices.long()
+    render_generator = generator
+    if sp_group is not None:
+        ray_idx, render_generator = sp_ray_slice(ray_idx, generator, sp_group)
     origins, directions = ray_directions_at(frame, ray_idx)
     if group_skip:
         # targets follow ray_idx, and every ray reduction is a mean
@@ -412,14 +467,14 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         origins, directions, cfg.distance_range, cfg.num_samples, std, cosine_ratio,
         field_with_grad=field_with_grad,
         field_with_dirgrad_coarse=field_with_dirgrad_coarse,
-        deterministic=cfg.deterministic, generator=generator,
+        deterministic=cfg.deterministic, generator=render_generator,
     )
     rendered = out.features  # [(F,) R, N] per-ray instance probabilities
 
     targets = torch.take_along_dim(frame.soft_masks_flat, ray_idx[..., None], dim=-2)
     targets = torch.take_along_dim(targets.to(rendered.dtype), row_to_col[..., None, :], dim=-1)
     bce = _binary_cross_entropy(rendered, targets)
-    silhouette_loss = frame_mean(bce, frame.valid[..., None, :])
+    silhouette_loss = _masked_mean(bce, frame.valid[..., None, :], dim=(-2, -1), group=sp_group)
 
     losses = {
         "iou_projection_loss": iou_loss,
@@ -429,13 +484,18 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
     zero = torch.zeros(lead, device=device)
     if use_rdf:
         norms = torch.linalg.vector_norm(out.gradients, dim=-1)
-        losses["eikonal_loss"] = torch.mean(torch.square(norms - 1.0), dim=(-2, -1))
+        squares = torch.square(norms - 1.0)
+        if sp_group is None:
+            losses["eikonal_loss"] = torch.mean(squares, dim=(-2, -1))
+        else:
+            losses["eikonal_loss"] = _masked_mean(squares, torch.ones_like(squares), dim=(-2, -1),
+                                                  group=sp_group)
     else:
         losses["eikonal_loss"] = zero
     if cfg.photometric_weight > 0.0 and use_rdf and frame.gray_images is not None:
         hard = scene.SceneParams(locations, rotations, half_dims, frame.valid, field_weights)
         losses["photometric_loss"], _ = photometric.photometric_loss(
-            frame, hard, generator,
+            frame, hard, render_generator,
             num_rays=cfg.surface_num_rays,
             num_iterations=cfg.surface_num_iterations,
             convergence_criteria=cfg.surface_convergence_criteria,
@@ -444,6 +504,11 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
             local_idx=surface_indices,
             position_scale=scale,
         )
+        if sp_group is not None:
+            # each process draws its own surface rays: the average over the
+            # group (pmean in the JAX package) is the reported value
+            losses["photometric_loss"] = (all_reduce_sum(losses["photometric_loss"], sp_group)
+                                          / dist.get_world_size(sp_group))
     else:
         losses["photometric_loss"] = zero
 
@@ -499,21 +564,43 @@ def compute_metrics(frame: FrameData, cam_corners_target, row_to_col):
     }
 
 
+def sp_mean_gradients(grads, group):
+    """Average gradients over ``group`` (one all-reduce of them all
+    flattened; ``None`` stays ``None``, alike on every process). Through
+    ``compute_loss``'s differentiable sums a ray-local term hands each
+    process S times its own rays' share and a replicated term its whole
+    gradient, so the average is the single-process gradient of both, as
+    the JAX package's ``pmean`` of the gradients is."""
+    present = [g for g in grads if g is not None]
+    if not present:
+        return grads
+    flat = torch.cat([g.reshape(-1) for g in present])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    pieces = iter(torch.split(flat, [g.numel() for g in present]))
+    return [None if g is None else next(pieces).view_as(g) for g in grads]
+
+
 def train_step(params, opt_state, frame: FrameData, step: int, cfg: OptimizationConfig,
                optimizer: Adam, generator: torch.Generator | None = None,
-               ray_indices: torch.Tensor | None = None):
+               ray_indices: torch.Tensor | None = None, sp_group=None):
     """One optimization step with the warmup phase switch; updates
     ``params`` and ``opt_state`` in place and returns the step's scalars
     as device tensors (0-d, or ``[F]`` for stacked frames, whose per-frame
-    losses are summed for the gradient)."""
+    losses are summed for the gradient). With ``sp_group`` the rays are
+    sharded over the group (``compute_loss``) and the gradients averaged
+    over it (``sp_mean_gradients``) before the update."""
     use_rdf = step >= cfg.warmup_steps
     leaves = [t for _, t in tree_leaves(params)]
     for leaf in leaves:
         leaf.requires_grad_(True)
-    total, aux = compute_loss(params, frame, step, cfg, use_rdf, generator, ray_indices)
+    total, aux = compute_loss(params, frame, step, cfg, use_rdf, generator, ray_indices,
+                              sp_group=sp_group)
     grads = torch.autograd.grad(total.sum(), leaves, allow_unused=True)
     for leaf in leaves:
         leaf.requires_grad_(False)
+    if sp_group is not None:
+        grads = sp_mean_gradients(grads, sp_group)
     optimizer.step(params, grads, opt_state)
 
     lead = frame.valid.shape[:-1]

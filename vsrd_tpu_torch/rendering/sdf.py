@@ -18,6 +18,11 @@ import torch
 import torch.nn.functional as F
 
 
+def safe_norm(x: torch.Tensor, dim=-1, keepdim=False, epsilon: float = 1e-6) -> torch.Tensor:
+    """sqrt(sum(x^2) + eps): smooth at 0."""
+    return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim) + epsilon)
+
+
 def box_sdf(local: torch.Tensor, half_dimensions: torch.Tensor) -> torch.Tensor:
     """Axis-aligned box SDF of local points ``[..., 3]`` -> ``[...]``.
 

@@ -153,3 +153,43 @@ def detector_params_to_jax(state_dict, num_heads: int):
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(leaf)
     return {"params": params}
+
+
+def _block_tensor(name: str, array: np.ndarray) -> tuple[str, torch.Tensor]:
+    """One flax block parameter -> (the port module's name, its tensor)."""
+    if name == "kernel" and array.ndim == 5:
+        # flax [kH, kW, kC, 1, D] over (H, W, C) -> torch [D, 1, kC, kH, kW] over (C, H, W)
+        return "weight", torch.from_numpy(array.transpose(4, 3, 2, 0, 1).copy())
+    if name == "kernel" and array.ndim == 4:
+        return "weight", torch.from_numpy(array.transpose(3, 2, 0, 1).copy())   # [O, I, kh, kw]
+    if name == "kernel":
+        return "weight", torch.from_numpy(array.T.copy())                      # [O, I]
+    if name == "scale":
+        return "weight", torch.from_numpy(array.copy())
+    return name, torch.from_numpy(np.asarray(array).copy())
+
+
+def blocks_params_from_jax(variables, device: torch.device | str = "cuda"):
+    """A flax block's variables (``{"params": {...}}`` or the params, as
+    numpy) -> a ``state_dict`` for the port's block of the same kind
+    (``modules/blocks.py``): ``Conv_*`` becomes ``conv3d`` or ``conv2d`` by
+    its kernel's rank, ``Dense_k`` ``fc{k+1}``, ``GroupNorm_0`` ``norm``."""
+    params = variables.get("params", variables)
+    state = {}
+    for module, value in params.items():
+        if not isinstance(value, dict):
+            state[module] = torch.as_tensor(np.asarray(value, np.float32))
+            continue
+        kernel = value.get("kernel")
+        if module.startswith("Conv_"):
+            target = "conv3d" if np.ndim(kernel) == 5 else "conv2d"
+        elif module.startswith("Dense_"):
+            target = f"fc{int(module.split('_')[1]) + 1}"
+        elif module.startswith("GroupNorm_"):
+            target = "norm"
+        else:
+            raise ValueError(f"no port counterpart for flax module {module!r}")
+        for name, array in value.items():
+            key, tensor = _block_tensor(name, np.asarray(array, np.float32))
+            state[f"{target}.{key}"] = tensor
+    return {k: v.to(device) for k, v in state.items()}

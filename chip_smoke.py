@@ -46,10 +46,18 @@ Phases (any failure exits non-zero):
    residual field), so that the coarse pass runs K3 (K4b) with the field:
    finite scalars, one launch of each kernel per step, and 10 of K3's
    (K4b's) with the residual field;
-9. driver: a synthetic KITTI-360 drive written to a temporary directory
-   (PNGs by zlib and struct, annotation JSONs with the RLE masks of 12 cars
-   projected from their boxes, 17 views of 376x1408 per target, two
-   targets), then the labeling driver (``vsrd_tpu_torch.scripts.main``,
+9. driver: a synthetic raw KITTI-360 drive written to a temporary
+   directory by the port's PNG writer (``synthetic_kitti360``: 18 textured
+   frames of 376x1408, 12 cars, each car's visible pixels as 26000 + i in
+   the frame's 16-bit instance map, ``calibration/perspective.txt``, the
+   poses in ``data_poses/<drive>/cam0_to_world.txt`` and the cars' boxes in
+   ``data_3d_bboxes/train/<drive>.xml``, vertices in annotation order,
+   ``timestamp -1``); the port's ``make_annotations`` turns it into the
+   annotation JSONs, which must equal the annotations computed directly from
+   the scene (the same ids per frame, RLE strings equal, K and poses within
+   1e-9, corners within 1e-6 m; ``raw_annotations``, its seconds per
+   frame printed); 17 views per target, two targets; then the labeling
+   driver trains on those annotations (``vsrd_tpu_torch.scripts.main``,
    what ``python -m vsrd_tpu_torch.scripts.main --train`` runs, here in
    this process so that the launch counters can be read) on the shipped
    config cut to 40 steps (20 warmup), checkpoints every 20 and
@@ -124,7 +132,20 @@ Phases (any failure exits non-zero):
    m), ``SpatialPropagation2d`` (k=3, 10 steps, [1, 1, 376, 1408]),
    ``forward_warping`` ([1, 3, 376, 1408]), ``sinkhorn_knopp`` ([50, 8400]),
    ``PackingBlock`` / ``UnpackingBlock`` (64 channels on [1, 64, 188, 704])
-   and six losses on [8, 1, 376, 1408] maps.
+   and six losses on [8, 1, 376, 1408] maps;
+16. tools (after phase 13, on its drive; its own ``[time]`` line):
+   ``select_model`` over the driver's checkpoints against a numpy reading
+   of their stored metrics, by the greatest iou_3d and by the least loss
+   (the same file, copied to ``model.npz``);
+   ``visualize_annotations`` over the 18 frames and ``visualize_predictions``
+   over phase 13's predictions: one 376x1408x3 PNG per frame, each differing
+   from its raw image somewhere and only on the masks and wireframes (the
+   wireframes drawn alone on a black canvas), seconds per frame printed, and
+   their ``mp4v`` videos written exactly where cv2 imports;
+   ``configure`` --gather, --scatter, --gather on a copy of
+   ``configs/kitti_360``, back to the start JSON; the seven augmentations,
+   built from their ``vsrd.transforms.<Name>`` configs, on one 376x1408 frame
+   (finite images in [0, 1] of the expected shapes; host seconds each).
 
 The second-to-last line is a JSON object with one entry per kernel and
 mode of the paths: its launches in its path (K3 and K4b with the residual
@@ -890,49 +911,37 @@ def matching_phase(card: str) -> dict:
     return timings[(16, 2)]
 
 
-def png_bytes(pixels) -> bytes:
-    """An 8-bit RGB PNG of ``pixels [H, W, 3]`` (uint8), written with zlib and
-    struct: rows filtered by Sub and Up in turn, as an encoder would."""
-    import struct
-    import zlib
+def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int = 0):
+    """The raw KITTI-360 tree of a drive of 376x1408 frames 0-17 under
+    ``root``: a camera moving ``step`` m per frame along +z, 12 cars on the
+    ground (the camera 1.65 m above it) on rays 8 degrees apart from the
+    first target's camera, alternately 12 and 24 m ahead, each turned along
+    its ray. Each car's visible pixels (by slab tests along the pixel rays
+    and a depth test) go into the frame's 16-bit instance map as 26000 + i
+    where they number at least 8; the tree also holds the textured images,
+    ``calibration/perspective.txt``, ``data_poses/<drive>/cam0_to_world.txt``
+    and ``data_3d_bboxes/train/<drive>.xml`` (each car's vertices in
+    KITTI-360's annotation order in its own frame, its pose as the
+    transform, ``timestamp -1``), all written by the port
+    (``data/png.py::write_png``). Returns the sampled-frames file (each
+    target with its 16 neighbours as sources) and the annotations computed
+    directly from the scene, by frame index."""
+    import xml.etree.ElementTree as ET
 
     import numpy as np
 
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    height, width = pixels.shape[:2]
-    flat = pixels.reshape(height, -1).astype(np.int16)
-    sub, up = flat.copy(), flat.copy()
-    sub[:, 3:] -= flat[:, :-3]
-    up[1:] -= flat[:-1]
-    rows = (np.where((np.arange(height) % 2 == 0)[:, None], sub, up) & 0xFF).astype(np.uint8)
-    kinds = np.where(np.arange(height) % 2 == 0, 1, 2).astype(np.uint8)[:, None]
-    raw = np.concatenate([kinds, rows], axis=1).tobytes()
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
-
-
-def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int = 0) -> str:
-    """A KITTI-360 drive of 376x1408 frames 0-17 under ``root``: a camera
-    moving ``step`` m per frame along +z, 12 cars on the ground (the camera
-    1.65 m above it) on rays 8 degrees apart from the first target's
-    camera, alternately 12 and 24 m ahead, each turned along its ray; each
-    frame's annotation holds the RLE masks of the cars' visible pixels (by
-    slab tests along the pixel rays and a depth test) and their camera-frame
-    corners. Returns the sampled-frames file: each target with its 16
-    neighbours as sources."""
-    import numpy as np
-
-    from vsrd_tpu_torch.data import rle
+    from vsrd_tpu_torch.data import png, rle
+    from vsrd_tpu_torch.tools.kitti_360 import make_annotations
 
     rng = np.random.default_rng(seed)
     h, w = 376, 1408
     k = np.asarray(KITTI_K)
     image_dir = os.path.join(root, "data_2d_raw", DRIVE, "image_00", "data_rect")
-    os.makedirs(image_dir)
+    instance_dir = os.path.join(root, "data_2d_semantics", "train", DRIVE, "image_00", "instance")
+    for dirname in (image_dir, instance_dir, os.path.join(root, "calibration"),
+                    os.path.join(root, "data_poses", DRIVE),
+                    os.path.join(root, "data_3d_bboxes", "train")):
+        os.makedirs(dirname)
     angles = np.deg2rad(np.arange(-44.0, 45.0, 8.0))
     depths = np.where(np.arange(DRIVER_CARS) % 2 == 0, 12.0, 24.0)
     half = np.array([0.9, 0.75, 2.2])
@@ -943,9 +952,33 @@ def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int =
         c, s = np.cos(yaw), np.sin(yaw)
         rots.append(np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]))
     corners = [(np.asarray(UNIT_CORNERS) * half) @ r.T + c for r, c in zip(rots, centers)]
+
+    def numbers(array):
+        return " ".join(map(repr, np.asarray(array, np.float64).ravel().tolist()))
+
+    # KITTI-360's rectified projections: image_01 is the stereo partner 0.6 m
+    # to the right (the annotation tool reads K from P_rect_01)
+    with open(os.path.join(root, "calibration", "perspective.txt"), "w") as file:
+        file.write(f"P_rect_00: {numbers(np.hstack([k, np.zeros((3, 1))]))}\n")
+        file.write(f"P_rect_01: {numbers(np.hstack([k, [[-0.6 * k[0, 0]], [0.0], [0.0]]]))}\n")
+    boxes = ET.Element("opencv_storage")
+    for i in range(DRIVER_CARS):
+        node = ET.SubElement(boxes, f"object{i + 1}")
+        ET.SubElement(node, "semanticId").text = str(make_annotations.DEFAULT_LABELS["car"][1])
+        ET.SubElement(node, "instanceId").text = str(i)
+        ET.SubElement(node, "timestamp").text = "-1"
+        transform = np.eye(4)
+        transform[:3, :3], transform[:3, 3] = rots[i], centers[i]
+        ET.SubElement(ET.SubElement(node, "transform"), "data").text = numbers(transform)
+        annotation_order = np.empty((8, 3))
+        annotation_order[make_annotations.EVAL_CORNER_ORDER] = np.asarray(UNIT_CORNERS) * half
+        ET.SubElement(ET.SubElement(node, "vertices"), "data").text = numbers(annotation_order)
+    ET.ElementTree(boxes).write(os.path.join(root, "data_3d_bboxes", "train", f"{DRIVE}.xml"))
+
     ys, xs = np.mgrid[0:h, 0:w]
     rays = np.stack([(xs - k[0, 2]) / k[0, 0], (ys - k[1, 2]) / k[1, 1], np.ones((h, w))], -1)
     background = ((xs * 7 + ys * 3) % 96 + 64).astype(np.uint8)
+    direct, poses = {}, []
     for frame in range(2 * targets[-1]):
         cam = np.array([0.0, 0.0, frame * step])
         depth = np.full((h, w), np.inf)
@@ -972,23 +1005,27 @@ def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int =
             owner[box][closer] = i
         extrinsic = np.eye(4)
         extrinsic[2, 3] = -cam[2]
+        pose = np.eye(4)
+        pose[2, 3] = cam[2]
+        poses.append(f"{frame} {numbers(pose)}\n")
         annotation = {"intrinsic_matrix": k.tolist(), "extrinsic_matrix": extrinsic.tolist(),
                       "masks": {"car": {}}, "boxes_3d": {"car": {}}}
+        instance_map = np.zeros((h, w), np.uint16)
         for i in range(DRIVER_CARS):
             mask = owner == i
             if mask.sum() >= 8:
                 annotation["masks"]["car"][str(26000 + i)] = rle.encode(mask)
                 annotation["boxes_3d"]["car"][str(26000 + i)] = (corners[i] - cam).tolist()
+                instance_map[mask] = 26000 + i
+        direct[frame] = annotation
+        png.write_png(os.path.join(instance_dir, f"{frame:010d}.png"), instance_map)
         # textured: a ramp behind, each car a shade of its own with a stripe
         # pattern along its image rows
         gray = np.where(owner >= 0, 40 + 12 * owner + (ys % 8) * 4, background).astype(np.uint8)
-        image = os.path.join(image_dir, f"{frame:010d}.png")
-        with open(image, "wb") as file:
-            file.write(png_bytes(np.repeat(gray[..., None], 3, axis=-1)))
-        label = image.replace("data_2d_raw", "annotations").replace(".png", ".json")
-        os.makedirs(os.path.dirname(label), exist_ok=True)
-        with open(label, "w") as file:
-            json.dump(annotation, file)
+        png.write_png(os.path.join(image_dir, f"{frame:010d}.png"),
+                      np.repeat(gray[..., None], 3, axis=-1))
+    with open(os.path.join(root, "data_poses", DRIVE, "cam0_to_world.txt"), "w") as file:
+        file.writelines(poses)
     split = os.path.join(root, "filenames", "smoke", DRIVE)
     os.makedirs(split)
     sampled = os.path.join(split, "sampled_image_filenames.txt")
@@ -997,7 +1034,50 @@ def synthetic_kitti360(root: str, targets=(8, 9), step: float = 0.5, seed: int =
     with open(sampled, "w") as file:
         for target in targets:
             file.write(f"{ids} {os.path.join(image_dir, f'{target:010d}.png')} {relative}\n")
-    return sampled
+    return sampled, direct
+
+
+def raw_annotations(root: str, direct: dict, card: str) -> float:
+    """``make_annotations`` (its CLI's ``main``, one worker) on the raw tree;
+    fails unless every frame's annotation equals the one computed directly:
+    the same instance ids, RLE strings equal, K and the extrinsic within
+    1e-9, the corners within 1e-6 m. Returns its seconds per frame."""
+    import numpy as np
+
+    from vsrd_tpu_torch.tools.kitti_360 import make_annotations
+
+    start = time.perf_counter()
+    make_annotations.main(make_annotations.parse_args(["--root_dirname", root,
+                                                       "--num_workers", "1"]))
+    per_frame = (time.perf_counter() - start) / len(direct)
+    label_dir = os.path.join(root, "annotations", DRIVE, "image_00", "data_rect")
+    written = sorted(os.listdir(label_dir))
+    if written != [f"{frame:010d}.json" for frame in sorted(direct)]:
+        fail(f"make_annotations wrote {written}, expected one JSON for each of the "
+             f"{len(direct)} frames")
+    ids = 0
+    for frame, want in direct.items():
+        with open(os.path.join(label_dir, f"{frame:010d}.json")) as file:
+            got = json.load(file)
+        masks = got["masks"].get("car", {})
+        boxes = got["boxes_3d"].get("car", {})
+        if list(masks) != list(want["masks"]["car"]) or list(boxes) != list(masks):
+            fail(f"make_annotations frame {frame}: ids {list(masks)} / {list(boxes)}, expected "
+                 f"{list(want['masks']['car'])}")
+        if masks != want["masks"]["car"]:
+            fail(f"make_annotations frame {frame}: RLE strings differ")
+        k_err = np.abs(np.subtract(got["intrinsic_matrix"], want["intrinsic_matrix"])).max()
+        e_err = np.abs(np.subtract(got["extrinsic_matrix"], want["extrinsic_matrix"])).max()
+        c_err = max((np.abs(np.subtract(boxes[i], want["boxes_3d"]["car"][i])).max()
+                     for i in boxes), default=0.0)
+        if not (k_err <= 1e-9 and e_err <= 1e-9 and c_err <= 1e-6):
+            fail(f"make_annotations frame {frame}: K err {k_err}, extrinsic err {e_err}, "
+                 f"corner err {c_err} m")
+        ids += len(masks)
+    print(f"[raw] make_annotations: {len(direct)} frames of 376x1408, {ids} instance masks, "
+          f"= the direct annotations (RLE equal, K and poses within 1e-9, corners within "
+          f"1e-6 m); {per_frame:.3f} s per frame (host) on {card}", flush=True)
+    return per_frame
 
 
 def driver_phase(card: str, root: str) -> dict:
@@ -1033,9 +1113,10 @@ def driver_phase(card: str, root: str) -> dict:
     # the driver's logger, set up as the driver sets it up, and read here too
     parallel.get_logger("vsrd_tpu_torch.main", rank_zero_only=False).addHandler(Collect())
     start = time.perf_counter()
-    sampled = synthetic_kitti360(root)
-    print(f"[driver] synthetic drive: 18 frames of 376x1408, {DRIVER_CARS} cars, in "
+    sampled, direct = synthetic_kitti360(root)
+    print(f"[driver] synthetic raw drive: 18 frames of 376x1408, {DRIVER_CARS} cars, in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
+    annotate_s = raw_annotations(root, direct, card)
     shipped = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                            "kitti_360", "vsrd", "config.json")
     with open(shipped) as file:
@@ -1149,7 +1230,7 @@ def driver_phase(card: str, root: str) -> dict:
           f"per frame with it on {card}", flush=True)
     return {"launches": counts, "load_s": loads, "wall_s": wall,
             "photometric_load_s": photo_loads, "photometric_wall_s": photo_wall,
-            "sampled": sampled}
+            "sampled": sampled, "annotate_s": annotate_s}
 
 
 DETR_SHAPES = (8, 24)                  # [B * L, 50, 50]: 8 images, 1 and 3 decoder levels
@@ -1461,6 +1542,193 @@ def detector_phase(card: str, root: str, sampled: str, params, frame, cfg) -> di
     panels_phase(params, frame, cfg, card)
     print(f"[time] detector phase: {time.perf_counter() - start:.1f} s", flush=True)
     return {"jv": jv, "runs": runs}
+
+
+# ---- phase 16: the raw lifecycle's tools after the driver and the detector ----
+# the augmentations of a detector's config, on one full frame
+AUGMENTATIONS = {
+    "Cropper": dict(position=[24, 64], image_size=[320, 1280]),
+    "RandomHorizontalFlipper": dict(probability=1.0),
+    "BoxJitter": dict(scale_range=[-0.1, 0.1]),
+    "FractalBrownianMotion": dict(amplitude=0.1, resolution=[4, 16], persistence=0.5,
+                                  lacunarity=2, num_octaves=4),
+    "FastFractalBrownianMotion": dict(amplitude=0.1, resolution=[4, 16], persistence=0.5,
+                                      lacunarity=2, num_octaves=4, downscale_factor=4),
+    "RandomConvolution": dict(kernel_sizes=[3, 5, 7]),
+    "ColorJitter": dict(brightness=[0.8, 1.2], contrast=[0.8, 1.2], saturation=[0.8, 1.2],
+                        hue=[-0.1, 0.1]),
+}
+
+
+def _changed_only_within(label: str, drawn, image, allowed) -> int:
+    """Fails unless ``drawn`` differs from ``image`` somewhere and only where
+    ``allowed`` is set; returns the count of changed pixels."""
+    import numpy as np
+
+    changed = (drawn != image).any(axis=-1)
+    if drawn.shape != (376, 1408, 3) or drawn.dtype != np.uint8:
+        fail(f"{label}: a {drawn.shape} {drawn.dtype} PNG, expected 376x1408x3 uint8")
+    if not changed.any() or (changed & ~allowed).any():
+        fail(f"{label}: {int(changed.sum())} pixels changed, {int((changed & ~allowed).sum())} "
+             f"of them outside the masks and wireframes")
+    return int(changed.sum())
+
+
+def tools_phase(card: str, root: str) -> dict:
+    """Phase 16 (see the module docstring): select_model, both visualizers,
+    configure and the seven augmentations on the driver's drive."""
+    import glob
+
+    import numpy as np
+
+    from vsrd_tpu_torch.configuration import configure, registry
+    from vsrd_tpu_torch.data import png, rle
+    from vsrd_tpu_torch.tools import select_model
+    from vsrd_tpu_torch.tools.kitti_360 import visualize_annotations, visualize_predictions
+    from vsrd_tpu_torch.visualization import drawers
+
+    start = time.perf_counter()
+    # select_model over the driver's checkpoints, against a numpy reading of
+    # their stored metrics (ties to the last path, as max over (score, path)):
+    # the CLI's greatest iou_3d (40 steps leave it at 0 in every checkpoint, so
+    # the path decides), then the least loss (distinct values)
+    ckpt_dirname = os.path.join(root, "ckpts", "smoke")
+    paths = sorted(glob.glob(os.path.join(ckpt_dirname, "**", "*.npz"), recursive=True))
+    metrics = {}
+    for path in paths:
+        with np.load(path) as data:
+            metrics[path] = {k: float(data[f"metrics/{k}"]) for k in ("iou_3d", "loss")}
+    for metric, maximize in (("iou_3d", True), ("loss", False)):
+        args = select_model.parse_args(["--ckpt_dirname", ckpt_dirname, "--metric", metric])
+        args.maximize = maximize            # the CLI's --maximize cannot be turned off
+        chosen = select_model.main(args)
+        scores = [(metrics[p][metric], p) for p in paths]
+        want = max(scores) if maximize else min(scores)
+        model = os.path.join(ckpt_dirname, "model.npz")
+        with open(chosen, "rb") as a, open(model, "rb") as b:
+            copied = a.read() == b.read()
+        os.remove(model)
+        if len(paths) < 4 or chosen != want[1] or not copied:
+            fail(f"select_model --metric {metric} chose {chosen} of {len(paths)} checkpoints, "
+                 f"expected {want[1]} (copied to model.npz: {copied})")
+        print(f"[tools] select_model {'greatest' if maximize else 'least'} {metric}: "
+              f"{os.path.relpath(chosen, ckpt_dirname)} of {len(paths)} checkpoints "
+              f"({metric} {want[0]:.4f}, {sum(s == want[0] for s, _ in scores)} at that value) "
+              f"= the numpy reading", flush=True)
+
+    # visualize_annotations over the 18 frames: changes only on masks and wireframes
+    image_dir = os.path.join(root, "data_2d_raw", DRIVE, "image_00", "data_rect")
+    out_dirname = os.path.join(root, "visualizations")
+    vis_start = time.perf_counter()
+    written = visualize_annotations.visualize_sequence(DRIVE, root, out_dirname + "/annotations",
+                                                       ["car"], 10)
+    annotation_s = (time.perf_counter() - vis_start) / max(len(written), 1)
+    if len(written) != 18:
+        fail(f"visualize_annotations wrote {len(written)} PNGs, expected 18")
+    changed = 0
+    for path in written:
+        name = os.path.basename(path)
+        with open(os.path.join(root, "annotations", DRIVE, "image_00", "data_rect",
+                               name.replace(".png", ".json"))) as file:
+            annotation = json.load(file)
+        allowed = np.zeros((376, 1408), bool)
+        for encoded in annotation["masks"].get("car", {}).values():
+            allowed |= rle.decode(encoded).astype(bool)
+        boxes = list(annotation["boxes_3d"].get("car", {}).values())
+        if boxes:
+            wire = drawers.draw_boxes_3d(np.zeros((376, 1408, 3), np.uint8), np.asarray(boxes),
+                                         np.asarray(annotation["intrinsic_matrix"]),
+                                         line_indices=drawers.LINE_INDICES + [[0, 5], [1, 4]])
+            allowed |= wire.any(axis=-1)
+        changed += _changed_only_within(f"visualize_annotations {name}", png.read_rgb(path),
+                                        png.read_rgb(os.path.join(image_dir, name)), allowed)
+
+    # visualize_predictions over phase 13's predictions
+    predictions = sorted(glob.glob(os.path.join(root, "predictions", "smoke", DRIVE, "image_00",
+                                                "data_rect", "*.json")))
+    vis_start = time.perf_counter()
+    drawn = visualize_predictions.visualize_sequence(DRIVE, root, ckpt_dirname,
+                                                     out_dirname + "/predictions", 10)
+    prediction_s = (time.perf_counter() - vis_start) / max(len(drawn), 1)
+    if not predictions or len(drawn) != len(predictions):
+        fail(f"visualize_predictions wrote {len(drawn)} PNGs for {len(predictions)} predictions")
+    k = np.asarray(KITTI_K)
+    for path, prediction_path in zip(drawn, predictions):
+        with open(prediction_path) as file:
+            boxes = np.asarray(json.load(file)["boxes_3d"]["car"])
+        wire = drawers.draw_boxes_3d(np.zeros((376, 1408, 3), np.uint8), boxes, k)
+        name = os.path.basename(path)
+        changed += _changed_only_within(f"visualize_predictions {name}", png.read_rgb(path),
+                                        png.read_rgb(os.path.join(image_dir, name)),
+                                        wire.any(axis=-1))
+    # the mp4v videos exist exactly where cv2 imports (else each tool said why not)
+    cv2 = visualize_annotations.cv2
+    videos = [os.path.exists(os.path.join(out_dirname, kind, f"{DRIVE}.mp4"))
+              for kind in ("annotations", "predictions")]
+    if videos != [cv2 is not None] * 2:
+        fail(f"visualizers: videos written {videos} with cv2 {'present' if cv2 else 'absent'}")
+    video = f"written by cv2 {cv2.__version__}" if cv2 is not None else "not written (no cv2)"
+    print(f"[tools] visualize_annotations: {len(written)} PNGs of 376x1408x3, "
+          f"{annotation_s:.3f} s per frame; visualize_predictions: {len(drawn)} PNGs, "
+          f"{prediction_s:.3f} s per frame (host); {changed} pixels changed, all on masks and "
+          f"wireframes; mp4v videos {video}, on {card}", flush=True)
+
+    # configure on a copy of configs/kitti_360: the shipped tree is gathered,
+    # so gather keeps it, scatter pushes the shared keys down, gather lifts them
+    def tree_json(dirname):
+        out = {}
+        for path in sorted(glob.glob(os.path.join(dirname, "**", "*.json"), recursive=True)):
+            with open(path) as file:
+                out[os.path.relpath(path, dirname)] = json.load(file)
+        return out
+
+    configs = os.path.join(root, "configs_copy", "kitti_360")
+    shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                 "kitti_360"), configs)
+    begin = tree_json(configs)
+    trail = []
+    for flag in ("gather", "scatter", "gather"):
+        if not configure.run(configs, **{flag: True}):
+            fail(f"configure --{flag} failed on a copy of configs/kitti_360")
+        trail.append(tree_json(configs) == begin)
+    if trail != [True, False, True]:
+        fail(f"configure: the tree equal to the start after gather, scatter, gather: {trail}")
+    print(f"[tools] configure --gather, --scatter, --gather on configs/kitti_360 "
+          f"({len(begin)} files): back to the start JSON", flush=True)
+
+    # the seven augmentations, built from their configs, on frame 8
+    rng = np.random.default_rng(0)
+    with open(os.path.join(root, "annotations", DRIVE, "image_00", "data_rect",
+                           f"{8:010d}.json")) as file:
+        annotation = json.load(file)
+    masks = np.stack([rle.decode(m) for m in annotation["masks"]["car"].values()])
+    sample = {"image": png.read_rgb(os.path.join(image_dir, f"{8:010d}.png")).astype(
+                  np.float32) / 255.0,
+              "masks": masks.astype(np.float32), "image_size": (376, 1408),
+              "intrinsic_matrix": np.asarray(annotation["intrinsic_matrix"]),
+              "crop_box": np.array([[100.0, 50.0], [900.0, 350.0]])}
+    times = {}
+    for name, kwargs in AUGMENTATIONS.items():
+        config = {"function": f"vsrd.transforms.{name}", "kwargs": kwargs}
+        transform = registry.instantiate(config)
+        transform.rng = rng
+        begin_t = time.perf_counter()
+        out = transform(sample)
+        times[name] = time.perf_counter() - begin_t
+        image = out.get("augmented_image", out["image"])
+        size = (320, 1280) if name == "Cropper" else (376, 1408)
+        if (image.shape != (*size, 3) or image.dtype != np.float32
+                or not (np.isfinite(image).all() and image.min() >= 0 and image.max() <= 1)
+                or out["masks"].shape[1:] != size or not np.isfinite(out["crop_box"]).all()):
+            fail(f"augmentation {name}: image {image.shape} {image.dtype} in "
+                 f"[{image.min()}, {image.max()}], masks {out['masks'].shape}")
+    print(f"[tools] the seven augmentations on a 376x1408 frame with {len(masks)} masks (host s): "
+          f"{json.dumps({k: round(v, 4) for k, v in times.items()})}", flush=True)
+    phase_s = time.perf_counter() - start
+    print(f"[time] tools phase: {phase_s:.1f} s; make_annotations, visualizers and augmentations "
+          f"on {card}", flush=True)
+    return {"visualize_annotations_s": annotation_s, "visualize_predictions_s": prediction_s,
+            "augmentations_s": times, "phase_s": phase_s}
 
 
 # ---- phase 14: per-tile instance-group skipping ----
@@ -2399,6 +2667,7 @@ def main():
     try:
         drive = driver_phase(card, root)
         detector = detector_phase(card, root, drive["sampled"], slice_params, slice_frame, cfg)
+        tools = tools_phase(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     skip = skip_phase(card, cfg)

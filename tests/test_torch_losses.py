@@ -157,14 +157,7 @@ def test_energy_scores_with_jax_samples_injected(kind, reduction):
     # both differentiate through it by implicit reparameterization
     grads = torch.autograd.grad(torch.sum(got), xs[:3])
     for g, i in zip(grads, range(3)):
-        _close(g, jgrads[i], rtol=GAMMA_GRAD_RTOL if (kind, i) == ("student", 1) else 1e-5)
-
-
-# torch's dG/da for a gamma draw (torch._standard_gamma_grad) rests on
-# coarser series and asymptotic approximations than XLA's
-# random_gamma_grad: the two differ by up to about 2e-4 relative at a in
-# [0.3, 4] (held below), and the Student-t shapes' gradient inherits that
-GAMMA_GRAD_RTOL = 3e-4
+        _close(g, jgrads[i], rtol=1e-5)
 
 
 def test_reparameterized_gamma_gradient_matches_jax():
@@ -176,7 +169,27 @@ def test_reparameterized_gamma_gradient_matches_jax():
     got = tprob.reparameterized_gamma(at, torch.from_numpy(draws))
     assert torch.equal(got.detach(), torch.from_numpy(draws))
     (grad,) = torch.autograd.grad(torch.sum(got), [at])
-    np.testing.assert_allclose(grad.numpy(), np.asarray(want), rtol=GAMMA_GRAD_RTOL)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(want), rtol=1e-5)
+
+
+def test_random_gamma_grad_matches_xla_over_2000_draws():
+    """dG/da written out from XLA's series and continued fraction against
+    jax.lax.random_gamma_grad in float32, 2,000 draws at a in [0.3, 4] that
+    take both branches, and the edge values: 0 at x = 0, NaN outside the
+    domain."""
+    rng = np.random.default_rng(11)
+    a = rng.uniform(0.3, 4.0, size=2000).astype(np.float32)
+    draws = np.array(jax.random.gamma(jax.random.PRNGKey(12), jnp.asarray(a)))
+    assert (draws > 1).any() and (draws <= 1).any()
+    want = np.asarray(jax.lax.random_gamma_grad(jnp.asarray(a), jnp.asarray(draws)))
+    got = tprob.random_gamma_grad(torch.from_numpy(a), torch.from_numpy(draws))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    edge_a = np.array([1.5, 1.5, -1.0, 0.0], np.float32)
+    edge_x = np.array([0.0, -1.0, 1.0, 1.0], np.float32)
+    edge = tprob.random_gamma_grad(torch.from_numpy(edge_a), torch.from_numpy(edge_x)).numpy()
+    np.testing.assert_array_equal(
+        edge, np.asarray(jax.lax.random_gamma_grad(jnp.asarray(edge_a), jnp.asarray(edge_x))))
 
 
 @pytest.mark.parametrize("kind", ["gaussian", "student"])

@@ -4,7 +4,8 @@ the labeling driver's photometric run, which reads pixels through them.
 PNGs with every scanline filter (None, Sub, Up, Average, Paeth, and a mix
 by row) in every 8-bit colour type are written here with zlib, then decoded
 by PIL and by the port (its compiled unfilter and its Python loop): equal
-byte for byte. The resize is held to ``cv2.resize(INTER_LINEAR)`` on float
+byte for byte; 16-bit grey ones likewise against cv2's IMREAD_ANYDEPTH, and
+the port's writer is read back by cv2. The resize is held to ``cv2.resize(INTER_LINEAR)`` on float
 images within 2e-7 (2 ulp at 1.0: OpenCV's SIMD rows round a product or a
 sum differently); at KITTI-360's native size it is the identity.
 """
@@ -48,17 +49,20 @@ def _filter_row(row, prev, bpp, kind):
 
 
 def _write_png(path, pixels, filters):
-    """An 8-bit PNG of ``pixels`` [H, W(, C)], row y filtered with
+    """An 8-bit PNG of ``pixels`` [H, W(, C)] (a 16-bit grey one of uint16
+    ``pixels`` [H, W], big-endian byte pairs), row y filtered with
     ``filters[y % len(filters)]``, its image data in two IDAT chunks."""
     h, w = pixels.shape[:2]
     channels = 1 if pixels.ndim == 2 else pixels.shape[2]
-    flat = pixels.reshape(h, w * channels)
-    prev = np.zeros(w * channels, np.uint8)
+    depth = 16 if pixels.dtype == np.uint16 else 8
+    bpp = channels * depth // 8
+    flat = (pixels.astype(">u2").view(np.uint8) if depth == 16 else pixels).reshape(h, w * bpp)
+    prev = np.zeros(w * bpp, np.uint8)
     raw = bytearray()
     for y in range(h):
         kind = filters[y % len(filters)]
         raw.append(kind)
-        raw += _filter_row(flat[y], prev, channels, kind).tobytes()
+        raw += _filter_row(flat[y], prev, bpp, kind).tobytes()
         prev = flat[y]
     data = zlib.compress(bytes(raw), 6)
 
@@ -66,7 +70,7 @@ def _write_png(path, pixels, filters):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    header = struct.pack(">IIBBBBB", w, h, 8, COLOR_TYPES[channels], 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, depth, COLOR_TYPES[channels], 0, 0, 0)
     half = len(data) // 2
     with open(path, "wb") as file:
         file.write(png.SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", data[:half])
@@ -108,6 +112,57 @@ def test_png_decoder_reads_pil_and_opencv_files_and_refuses_others(tmp_path):
     (tmp_path / "not.png").write_bytes(b"GIF89a")
     with pytest.raises(ValueError, match="not a PNG"):
         png.read_png(str(tmp_path / "not.png"))
+
+
+def _instance_map(seed, shape=(23, 37)):
+    """A uint16 map of KITTI-360 instance ids (26000 + i, values far above
+    255, so that both bytes of a sample vary) over ramps and noise."""
+    rng = np.random.default_rng(seed)
+    ramp = np.arange(shape[0])[:, None] * 301 + np.arange(shape[1])[None, :] * 257
+    return (26000 + ramp + rng.integers(0, 600, shape)).astype(np.uint16)
+
+
+@pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,), (4, 3, 0, 2, 1)])
+def test_png_16bit_read_matches_opencv(tmp_path, filters):
+    """16-bit grey PNGs filtered by each filter (Paeth over byte pairs
+    included), by cv2 and by write_png: read_png_anydepth equals
+    cv2.imread(IMREAD_ANYDEPTH) value for value."""
+    pixels = _instance_map(len(filters) * 7 + filters[0])
+    paths = {name: str(tmp_path / f"{name}.png") for name in ("filtered", "cv2", "port")}
+    _write_png(paths["filtered"], pixels, filters)
+    cv2.imwrite(paths["cv2"], pixels)
+    png.write_png(paths["port"], pixels)
+    for path in paths.values():
+        want = cv2.imread(path, cv2.IMREAD_ANYDEPTH)
+        assert want.dtype == np.uint16
+        np.testing.assert_array_equal(want, pixels)
+        got = png.read_png_anydepth(path)
+        assert got.dtype == np.uint16 and got.shape == pixels.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_png_writer_round_trips_through_opencv(tmp_path):
+    """write_png's 8-bit grey and RGB files read back by cv2 pixel for pixel
+    (RGB as cv2's BGR), and by the port's readers; 8-bit grey at any depth
+    as cv2 reads it; other arrays refused."""
+    rng = np.random.default_rng(3)
+    grey = rng.integers(0, 256, (29, 41), dtype=np.uint8)
+    rgb = rng.integers(0, 256, (29, 41, 3), dtype=np.uint8)
+    png.write_png(str(tmp_path / "grey.png"), grey)
+    png.write_png(str(tmp_path / "rgb.png"), rgb)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "grey.png"), cv2.IMREAD_UNCHANGED),
+                                  grey)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "rgb.png")), rgb[..., ::-1])
+    np.testing.assert_array_equal(png.read_png(str(tmp_path / "grey.png")), grey)
+    np.testing.assert_array_equal(png.read_rgb(str(tmp_path / "rgb.png")), rgb)
+    any_depth = png.read_png_anydepth(str(tmp_path / "grey.png"))
+    assert any_depth.dtype == np.uint8
+    np.testing.assert_array_equal(
+        any_depth, cv2.imread(str(tmp_path / "grey.png"), cv2.IMREAD_ANYDEPTH))
+    with pytest.raises(ValueError, match="greyscale"):
+        png.read_png_anydepth(str(tmp_path / "rgb.png"))
+    with pytest.raises(ValueError, match="write_png takes"):
+        png.write_png(str(tmp_path / "bad.png"), rgb.astype(np.float32))
 
 
 @pytest.mark.parametrize("src, dst", [((37, 53), (20, 31)), ((20, 31), (37, 53)),

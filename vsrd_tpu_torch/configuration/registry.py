@@ -16,6 +16,19 @@ from typing import Any, Callable
 REGISTRY: dict[str, Callable] = {}
 
 
+def register(name: str | None = None):
+    """Decorator/function to register a constructor under a dotted name
+    (its qualified name by default)."""
+
+    def wrap(fn, name=name):
+        REGISTRY[name or fn.__qualname__] = fn
+        return fn
+
+    if callable(name):                  # bare @register: the key is the qualified name
+        return wrap(name, None)
+    return wrap
+
+
 def register_defaults() -> None:
     """Register the port's public constructors under the JAX package's names
     (and the original VSRD's ``vsrd.*`` names)."""
@@ -28,7 +41,9 @@ def register_defaults() -> None:
         defaults[f"{prefix}.KITTI360Dataset"] = kitti360.KITTI360Dataset
         defaults[f"{prefix}.KITTIRawDataset"] = kitti360.KITTIRawDataset
     for name in ("Resizer", "MaskAreaFilter", "MaskRefiner", "BoxGenerator",
-                 "BoxSizeFilter", "SoftRasterizer"):
+                 "BoxSizeFilter", "SoftRasterizer", "Cropper", "RandomHorizontalFlipper",
+                 "BoxJitter", "FractalBrownianMotion", "FastFractalBrownianMotion",
+                 "RandomConvolution", "ColorJitter"):
         defaults[f"vsrd.transforms.{name}"] = getattr(tf, name)
     defaults["vsrd_tpu.OptimizationConfig"] = OptimizationConfig
     for name, fn in defaults.items():

@@ -1,4 +1,5 @@
-// Reverses the PNG scanline filters of an 8-bit, non-interlaced image.
+// Reverses the PNG scanline filters of a non-interlaced image of 8 or 16 bits
+// a sample (16-bit samples are byte pairs, the filters run over bytes).
 //
 // in:  height rows of (1 filter byte + stride bytes), as zlib inflates them;
 // out: height x stride bytes. bpp: bytes per pixel (the filters' left

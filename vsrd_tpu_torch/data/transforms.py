@@ -27,8 +27,15 @@ Transforms are callables taking and returning a sample dict with keys
 ``instance_ids [N]``, ``intrinsic_matrix``, ``extrinsic_matrix`` and
 ``image_size (H, W)``, plus the keys they add, and ``image [H, W, C] f32``
 when the image was read (the photometric branch reads it; the labeling
-path otherwise carries only its size). The augmentations for the detector
-leg are not ported.
+path otherwise carries only its size).
+
+The seven augmentations of the JAX package follow, with its constructors,
+``update_params`` and draw order: ``Cropper``, ``RandomHorizontalFlipper``,
+``BoxJitter``, ``FractalBrownianMotion``, ``FastFractalBrownianMotion``
+(its upsampling is ``resize_linear``), ``RandomConvolution`` (``filter2d``,
+``cv2.filter2D`` written out) and ``ColorJitter``, whose hue step goes
+through OpenCV's 8-bit HSV (``rgb_to_hsv`` and ``hsv_to_rgb``, equal to
+``cv2.cvtColor`` byte for byte).
 """
 
 from __future__ import annotations
@@ -438,3 +445,283 @@ class SoftRasterizer:
             with np.errstate(over="ignore"):          # far outside: exp -> inf, soft -> 0
                 soft[i] = 1.0 / (1.0 + np.exp(-sdf / self.temperature))
         return dict(sample, hard_masks=masks, soft_masks=soft)
+
+
+# ---- the augmentations (the detector leg's configs) ----
+#
+# Each draws from the ``np.random.Generator`` it is given (a fresh one by
+# default), in the JAX classes' order, so that one seed gives the JAX
+# package's draws; classes with ``update_params`` redraw there.
+
+
+class Cropper:
+    """Crop the image and masks to ``image_size`` at ``position`` (y, x) and
+    shift K."""
+
+    def __init__(self, position, image_size):
+        self.position = tuple(position)
+        self.image_size = tuple(image_size)
+
+    def __call__(self, sample):
+        y, x = self.position
+        h, w = self.image_size
+        sample = dict(sample)
+        if sample.get("image") is not None:
+            sample["image"] = sample["image"][y:y + h, x:x + w]
+        masks = sample.get("masks")
+        if masks is not None:
+            sample["masks"] = masks[:, y:y + h, x:x + w]
+        if "image_size" in sample:
+            full_h, full_w = sample["image_size"]
+            sample["image_size"] = (max(min(h, full_h - y), 0), max(min(w, full_w - x), 0))
+        k = sample.get("intrinsic_matrix")
+        if k is not None:
+            shift = np.array([[1, 0, -x], [0, 1, -y], [0, 0, 1]], dtype=k.dtype)
+            sample["intrinsic_matrix"] = shift @ k
+        return sample
+
+
+class RandomHorizontalFlipper:
+    """Flip the image and masks horizontally with ``probability`` (drawn in
+    ``update_params``) and flip K."""
+
+    def __init__(self, probability=0.5, rng=None):
+        self.probability = probability
+        self.rng = rng or np.random.default_rng()
+        self.update_params()
+
+    def update_params(self):
+        self.flip = bool(self.rng.random() < self.probability)
+
+    def __call__(self, sample):
+        if not self.flip:
+            return sample
+        image = sample.get("image")
+        h, w = image.shape[:2] if image is not None else sample["image_size"]
+        sample = dict(sample)
+        if image is not None:
+            sample["image"] = image[:, ::-1].copy()
+        masks = sample.get("masks")
+        if masks is not None:
+            sample["masks"] = masks[:, :, ::-1].copy()
+        k = sample.get("intrinsic_matrix")
+        if k is not None:
+            flip = np.array([[-1, 0, w - 1], [0, -1, h - 1], [0, 0, 1]], dtype=k.dtype)
+            sample["intrinsic_matrix"] = flip @ k
+        return sample
+
+
+class BoxJitter:
+    """Jitter ``crop_box`` [[x0, y0], [x1, y1]] by uniform scales of its size."""
+
+    def __init__(self, scale_range, rng=None):
+        self.scale_range = scale_range
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample):
+        crop_box = sample["crop_box"]
+        sizes = crop_box[1] - crop_box[0]
+        scales = self.rng.uniform(*self.scale_range, size=crop_box.shape)
+        return dict(sample, crop_box=crop_box + sizes * scales)
+
+
+class FractalBrownianMotion:
+    """Add fractal Perlin noise to the image: ``num_octaves`` octaves, each at
+    ``lacunarity`` times the last's resolution and ``persistence`` times its
+    amplitude, then scaled by a uniform draw."""
+
+    def __init__(self, amplitude, resolution, persistence, lacunarity, num_octaves, rng=None):
+        self.amplitude = np.asarray(amplitude, np.float32)
+        self.resolution = np.asarray(resolution, np.int64)
+        self.persistence = persistence
+        self.lacunarity = lacunarity
+        self.num_octaves = num_octaves
+        self.rng = rng or np.random.default_rng()
+
+    def _perlin(self, image_size, amplitude, resolution):
+        """One octave of Perlin noise at ``resolution`` gradient cells over
+        ``image_size`` (padded to whole cells, cropped from the top left),
+        normalized to [-amplitude, amplitude]."""
+        image_size = np.asarray(image_size)
+        resolution = np.maximum(resolution.astype(np.int64), 1)
+        padding = (resolution - image_size % resolution) % resolution
+        padded = image_size + padding
+        reps = padded // resolution
+        grid = [np.modf(np.linspace(0.0, r, s, endpoint=False))[0]
+                for r, s in zip(resolution, padded)]
+        py, px = np.meshgrid(*grid, indexing="ij")
+
+        angles = 2.0 * np.pi * self.rng.random(tuple(resolution + 1))
+        gradients = np.stack([np.cos(angles), np.sin(angles)], axis=0)
+        gradients = np.repeat(gradients, reps[0], axis=1)
+        gradients = np.repeat(gradients, reps[1], axis=2)
+        g00 = gradients[:, :-reps[0], :-reps[1]]
+        g10 = gradients[:, reps[0]:, :-reps[1]]
+        g01 = gradients[:, :-reps[0], reps[1]:]
+        g11 = gradients[:, reps[0]:, reps[1]:]
+
+        def dot(gr, oy, ox):
+            return (py - oy) * gr[0] + (px - ox) * gr[1]
+
+        n00, n10 = dot(g00, 0, 0), dot(g10, 1, 0)
+        n01, n11 = dot(g01, 0, 1), dot(g11, 1, 1)
+        wy = 3 * py**2 - 2 * py**3
+        wx = 3 * px**2 - 2 * px**3
+        n0 = n00 + (n10 - n00) * wy
+        n1 = n01 + (n11 - n01) * wy
+        noise = n0 + (n1 - n0) * wx
+        noise = (noise - noise.min()) / max(noise.max() - noise.min(), 1e-12)
+        noise = (noise * 2.0 - 1.0) * amplitude
+        return noise[padding[0]:, padding[1]:]
+
+    def _octaves(self, size):
+        return sum(self._perlin(size, self.amplitude * self.persistence**octave,
+                                self.resolution * self.lacunarity**octave)
+                   for octave in range(self.num_octaves))
+
+    def _add(self, sample, noise):
+        image = sample["image"]
+        out = np.clip(image + noise[..., None] * self.rng.random(), 0.0, 1.0).astype(image.dtype)
+        return dict(sample, image=out)
+
+    def __call__(self, sample):
+        return self._add(sample, self._octaves(np.asarray(sample["image"].shape[:2])))
+
+
+class FastFractalBrownianMotion(FractalBrownianMotion):
+    """``FractalBrownianMotion`` computed at 1/``downscale_factor`` of the
+    image size and resized up bilinearly (``resize_linear``, OpenCV's
+    INTER_LINEAR)."""
+
+    def __init__(self, *args, downscale_factor, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.downscale_factor = downscale_factor
+
+    def __call__(self, sample):
+        size = np.asarray(sample["image"].shape[:2])
+        noise = self._octaves(np.maximum(size // self.downscale_factor, 1))
+        return self._add(sample, resize_linear(noise.astype(np.float32), size))
+
+
+def filter2d(image: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(image, -1, kernel)``: the correlation (no flip) of each
+    channel with ``kernel`` anchored at its centre, the border reflected
+    without repeating the edge (BORDER_REFLECT_101), summed in float64 and
+    returned in ``image``'s dtype."""
+    kh, kw = kernel.shape
+    top, left = kh // 2, kw // 2
+    pad = [(top, kh - 1 - top), (left, kw - 1 - left)] + [(0, 0)] * (image.ndim - 2)
+    padded = np.pad(image.astype(np.float64), pad, mode="reflect")
+    h, w = image.shape[:2]
+    out = np.zeros(image.shape, np.float64)
+    for i in range(kh):
+        for j in range(kw):
+            out += float(kernel[i, j]) * padded[i:i + h, j:j + w]
+    return out.astype(image.dtype)
+
+
+class RandomConvolution:
+    """Blend the image with its correlation by a random normal kernel of a
+    size drawn from ``kernel_sizes``, normalized to sum 1, by a uniform
+    weight."""
+
+    def __init__(self, kernel_sizes, rng=None):
+        self.kernel_sizes = kernel_sizes
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, sample):
+        image = sample["image"]
+        k = int(self.rng.choice(self.kernel_sizes))
+        weight = self.rng.normal(size=(k, k)).astype(np.float32)
+        weight /= weight.sum() if abs(weight.sum()) > 1e-6 else 1.0
+        convolved = filter2d(image, weight)
+        alpha = self.rng.random()
+        out = np.clip(image + (convolved - image) * alpha, 0.0, 1.0)
+        return dict(sample, image=out.astype(image.dtype))
+
+
+# OpenCV's 8-bit HSV (H in [0, 180)): RGB -> HSV in 12-bit fixed point with
+# its division tables; HSV -> RGB in float32 with the products 1 - s h and
+# 1 - s (1 - h) fused (OpenCV's build contracts them to FMAs), then to uint8
+# by truncation in its SIMD blocks of HSV_SIMD_PIXELS pixels (AVX2: 8 lanes x
+# 4 registers) and by rounding in the scalar tail of each row
+_HSV_SHIFT = 12
+_DIVISORS = np.arange(1, 256, dtype=np.float64)
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / _DIVISORS)]).astype(np.int64)
+_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) / (6.0 * _DIVISORS))]).astype(np.int64)
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+HSV_SIMD_PIXELS = 32
+
+
+def rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)`` of a uint8 image."""
+    rgb = rgb.astype(np.int64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    s = (diff * _SDIV[v] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    return np.stack([np.where(h < 0, h + 180, h), s, v], axis=-1).astype(np.uint8)
+
+
+def _fused_one_minus(a, b):
+    """1 - a b in float32 with one rounding, as an FMA gives it."""
+    return (1.0 - a.astype(np.float64) * b.astype(np.float64)).astype(np.float32)
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of a uint8 image [H, W, 3]."""
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * (f32(6) / f32(180))
+    s = hsv[..., 1].astype(f32) * (f32(1) / f32(255))
+    v = hsv[..., 2].astype(f32) * (f32(1) / f32(255))
+    sector = np.floor(h)
+    h = h - sector
+    tab = np.stack([v, v * (f32(1) - s), v * _fused_one_minus(s, h),
+                    v * _fused_one_minus(s, f32(1) - h)], axis=-1)
+    bgr = np.take_along_axis(tab, _SECTORS[sector.astype(np.int64) % 6], axis=-1)
+    scaled = bgr[..., ::-1] * f32(255)
+    width = hsv.shape[1]
+    simd = np.arange(width) < width // HSV_SIMD_PIXELS * HSV_SIMD_PIXELS
+    out = np.where(simd[:, None], np.trunc(scaled), np.rint(scaled))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+class ColorJitter:
+    """Brightness, contrast, saturation and hue jitter of ``augmented_image``
+    (or the image), in an order and with factors drawn in
+    ``update_params``; the hue step turns the 8-bit hue of OpenCV's HSV."""
+
+    def __init__(self, brightness=(1.0, 1.0), contrast=(1.0, 1.0), saturation=(1.0, 1.0),
+                 hue=(0.0, 0.0), rng=None):
+        self.ranges = dict(brightness=brightness, contrast=contrast, saturation=saturation,
+                           hue=hue)
+        self.rng = rng or np.random.default_rng()
+        self.update_params()
+
+    def update_params(self):
+        self.factors = {name: self.rng.uniform(*bounds) for name, bounds in self.ranges.items()}
+        self.order = self.rng.permutation(4)
+
+    def _apply(self, image, name):
+        factor = self.factors[name]
+        if name == "brightness":
+            return np.clip(image * factor, 0, 1)
+        if name == "contrast":
+            gray = image @ np.array([0.299, 0.587, 0.114], np.float32)
+            mean = gray.mean()
+            return np.clip(mean + (image - mean) * factor, 0, 1)
+        if name == "saturation":
+            gray = (image @ np.array([0.299, 0.587, 0.114], np.float32))[..., None]
+            return np.clip(gray + (image - gray) * factor, 0, 1)
+        hsv = rgb_to_hsv((image * 255).astype(np.uint8)).astype(np.int32)
+        hsv[..., 0] = (hsv[..., 0] + int(factor * 180)) % 180
+        return hsv_to_rgb(hsv.astype(np.uint8)).astype(np.float32) / 255.0
+
+    def __call__(self, sample):
+        augmented = sample.get("augmented_image", sample["image"])
+        names = ["brightness", "contrast", "saturation", "hue"]
+        for index in self.order:
+            augmented = self._apply(augmented, names[index])
+        return dict(sample, augmented_image=augmented.astype(np.float32))

@@ -58,13 +58,102 @@ def standard_gamma(shape_param: torch.Tensor, generator: torch.Generator | None 
     return torch.where(boosted, out * u ** (1.0 / shape_param), out)
 
 
+def _igamma_series_sample_derivative(x, a, enabled):
+    """XLA's ``_igamma_series`` in its sample-derivative mode: the series of
+    P(a, x) and its derivative in ``a``, each entry iterating until its
+    derivative term falls below the dtype's epsilon."""
+    eps = torch.finfo(x.dtype).eps
+    r, c, ans = a, torch.ones_like(a), torch.ones_like(a)
+    dc_da, dans_da = torch.zeros_like(a), torch.zeros_like(a)
+    while bool(enabled.any()):
+        r_new = r + 1.0
+        dc_da_new = dc_da * (x / r_new) - (c * x) / (r_new * r_new)
+        dans_da_new = dans_da + dc_da_new
+        c_new = c * (x / r_new)
+        ans_new = ans + c_new
+        r = torch.where(enabled, r_new, r)
+        c = torch.where(enabled, c_new, c)
+        ans = torch.where(enabled, ans_new, ans)
+        dc_da = torch.where(enabled, dc_da_new, dc_da)
+        dans_da = torch.where(enabled, dans_da_new, dans_da)
+        enabled = enabled & (torch.abs(dc_da_new / dans_da_new) > eps)
+    dlogax_da = torch.log(x) - torch.digamma(a + 1.0)
+    return -(dans_da + ans * dlogax_da) * x / a
+
+
+def _igammac_continued_fraction_sample_derivative(x, a, enabled):
+    """XLA's ``_igammac_continued_fraction`` in its sample-derivative mode:
+    the continued fraction of Q(a, x) and its derivative in ``a``, at most
+    2000 terms, with XLA's rescaling of the convergents by epsilon."""
+    eps = torch.finfo(x.dtype).eps
+    y = 1.0 - a
+    z = x + y + 1.0
+    pkm2, qkm2 = torch.ones_like(x), x
+    pkm1, qkm1 = x + 1.0, z * x
+    ans = pkm1 / qkm1
+    dpkm2_da, dqkm2_da = torch.zeros_like(x), torch.zeros_like(x)
+    dpkm1_da, dqkm1_da = torch.zeros_like(x), -x
+    dans_da = (dpkm1_da - ans * dqkm1_da) / qkm1
+    c = 0.0
+    while c < 2000 and bool(enabled.any()):
+        c += 1.0
+        y_new = y + 1.0
+        z_new = z + 2.0
+        yc = y_new * c
+        pk = pkm1 * z_new - pkm2 * yc
+        qk = qkm1 * z_new - qkm2 * yc
+        nonzero = qk != 0
+        ans_new = torch.where(nonzero, pk / qk, ans)
+        dpk_da = dpkm1_da * z_new - pkm1 - dpkm2_da * yc + pkm2 * c
+        dqk_da = dqkm1_da * z_new - qkm1 - dqkm2_da * yc + qkm2 * c
+        dans_da_new = torch.where(nonzero, (dpk_da - ans_new * dqk_da) / qk, dans_da)
+        grad_conditional = torch.where(nonzero, torch.abs(dans_da_new - dans_da),
+                                       torch.ones_like(dans_da))
+        rescale = torch.abs(pk) > 1.0 / eps
+        scale = torch.where(rescale, torch.full_like(pk, eps), torch.ones_like(pk))
+        new = (pkm1 * scale, qkm1 * scale, pk * scale, qk * scale,
+               dpkm1_da * scale, dqkm1_da * scale, dpk_da * scale, dqk_da * scale)
+        old = (pkm2, qkm2, pkm1, qkm1, dpkm2_da, dqkm2_da, dpkm1_da, dqkm1_da)
+        (pkm2, qkm2, pkm1, qkm1, dpkm2_da, dqkm2_da, dpkm1_da, dqkm1_da) = (
+            torch.where(enabled, n, o) for n, o in zip(new, old))
+        ans = torch.where(enabled, ans_new, ans)
+        y = torch.where(enabled, y_new, y)
+        z = torch.where(enabled, z_new, z)
+        dans_da = torch.where(enabled, dans_da_new, dans_da)
+        enabled = enabled & (grad_conditional > eps)
+    dlogax_da = torch.log(x) - torch.digamma(a)
+    return -(dans_da + ans * dlogax_da) * x
+
+
+def random_gamma_grad(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dG/da of Gamma(a, 1) draws ``x``, -(dF/da)(x; a) / f(x; a) with F the
+    gamma CDF: XLA's ``random_gamma_grad`` (``jax.lax.random_gamma_grad``)
+    written out, in ``x``'s dtype. The series of P(a, x) serves x <= 1 or
+    x <= a, the continued fraction of Q(a, x) the rest; 0 at x = 0, NaN
+    outside the domain."""
+    a = a.to(x.dtype)
+    is_nan = torch.isnan(a) | torch.isnan(x)
+    x_is_zero = x == 0
+    domain_error = (x < 0) | (a <= 0)
+    use_igammac = (x > 1) & (x > a)
+    underflow = a * torch.log(x) - x - torch.lgamma(a) < -math.log(torch.finfo(x.dtype).max)
+    enabled = ~(x_is_zero | domain_error | underflow | is_nan)
+    output = torch.where(
+        use_igammac,
+        -_igammac_continued_fraction_sample_derivative(x, a, enabled & use_igammac),
+        _igamma_series_sample_derivative(x, a, enabled & ~use_igammac))
+    output = torch.where(x_is_zero, torch.zeros_like(output), output)
+    return torch.where(domain_error | is_nan, torch.full_like(output, math.nan), output)
+
+
 def reparameterized_gamma(shape_param: torch.Tensor, draw: torch.Tensor):
     """``draw``, Gamma(shape_param, 1) draws, with the implicit
     reparameterization gradient dG/da = -(dF/da)(G; a) / f(G; a), F the
-    gamma CDF, as the JAX package's gamma sampler differentiates. The value
-    is ``draw`` exactly; ``shape_param`` broadcasts to ``draw``'s shape."""
+    gamma CDF, from ``random_gamma_grad`` as the JAX package's gamma sampler
+    differentiates. The value is ``draw`` exactly; ``shape_param``
+    broadcasts to ``draw``'s shape."""
     a = torch.broadcast_to(shape_param, draw.shape)
-    dg_da = torch._standard_gamma_grad(a.detach(), draw.detach())
+    dg_da = random_gamma_grad(a.detach(), draw.detach())
     return draw.detach() + (a - a.detach()) * dg_da
 
 

@@ -73,15 +73,19 @@ using namespace vsrd;
 
 namespace {
 
-// dW_l[o][i] += hbar[o] a[i] + thbar[o] ta[i]; the bias column takes hbar[o]
+// dW_l[o][i] += hbar[o] a[i] + thbar[o] ta[i]; the bias column takes hbar[o];
+// BF16: each factor rounded to bf16 (the card's bf16 mma sink)
+template <bool BF16>
 struct HostSink {
   float* dW;
   void layer(int l, int in, int out, const float* a, const float* ta, const float* hbar,
              const float* thbar) {
     float* W = dW + layer_offset(l);
     for (int o = 0; o < out; ++o) {
-      for (int i = 0; i < in; ++i) W[o * (in + 1) + i] += hbar[o] * a[i] + thbar[o] * ta[i];
-      W[o * (in + 1) + in] += hbar[o];
+      const float hb = operand<BF16>(hbar[o]), thb = operand<BF16>(thbar[o]);
+      for (int i = 0; i < in; ++i)
+        W[o * (in + 1) + i] += hb * operand<BF16>(a[i]) + thb * operand<BF16>(ta[i]);
+      W[o * (in + 1) + in] += hb;
     }
   }
 };
@@ -89,6 +93,9 @@ struct HostSink {
 // instance_rev's and instance_dir's layer products as scalar loops over one
 // point's staging rows (rows: the value block, trows: the tangent block,
 // which instance_rev leaves at 0); W: the instance's 1617 flattened weights
+// (BF16: rounded, and each staged operand rounded where it is multiplied, as
+// the card's bf16 mma rounds its B fragments)
+template <bool BF16>
 struct HostProduct {
   const float* W;
   float rows[kHid], c[kHid], held[kHid], trows[kHid] = {}, tc[kHid] = {};
@@ -106,20 +113,22 @@ struct HostProduct {
     for (int o = 0; o < kHid; ++o)
       for (int k = 0; k < kHid; ++k) {
         const float wv = W[layer_offset(l) + o * row + k0 + k];
-        c[o] += wv * rows[k];
-        tc[o] += wv * trows[k];
+        c[o] += wv * operand<BF16>(rows[k]);
+        tc[o] += wv * operand<BF16>(trows[k]);
       }
   }
   void reverse(int l) {
     for (int i = 0; i < kHid; ++i)
-      for (int o = 0; o < kHid; ++o) c[i] += W[layer_offset(l) + o * (kHid + 1) + i] * rows[o];
+      for (int o = 0; o < kHid; ++o)
+        c[i] += W[layer_offset(l) + o * (kHid + 1) + i] * operand<BF16>(rows[o]);
   }
   void hold() {
     for (int o = 0; o < kHid; ++o) held[o] = rows[o];
   }
   void reverse0(int m) {
     for (int j = 0; j < kHid; ++j)
-      for (int o = 0; o < kHid; ++o) c[j] += W[o * (kEnc + 1) + m * kHid + j] * held[o];
+      for (int o = 0; o < kHid; ++o)
+        c[j] += W[o * (kEnc + 1) + m * kHid + j] * operand<BF16>(held[o]);
   }
   void store() {
     for (int o = 0; o < kHid; ++o) {
@@ -153,11 +162,12 @@ void to_local(const float* v, const float* R, float t[3]) {
 // K3's per-point loop: with the residual field instance_dir, the forward the
 // kernel runs, with its layer products as scalar loops; box-only box_dir.
 // Then the kernel's union (dir_union) over the point's row of logits,
-// distances and tangents.
-extern "C" void host_dir_forward(int P, int N, const float* pos, const float* dirs,
-                                 const float* loc, const float* rot, const float* half,
-                                 const float* valid, const float* W, float tau, float scale,
-                                 float* u, float* w, float* u_dot) {
+// distances and tangents. BF16: the default precision (W rounded by the
+// caller, the encoding's rounded 1 / scale).
+template <bool BF16>
+void dir_forward(int P, int N, const float* pos, const float* dirs, const float* loc,
+                 const float* rot, const float* half, const float* valid, const float* W,
+                 float tau, float scale, float* u, float* w, float* u_dot) {
   const bool any_valid = any_valid_of(N, valid);
   const std::vector<float> misc = misc_blocks(N, W);
   std::vector<float> d(N), td(N);
@@ -167,9 +177,13 @@ extern "C" void host_dir_forward(int P, int N, const float* pos, const float* di
       const float* x = pos + 3 * p;
       const float* v = dirs + 3 * p;
       if (W) {
-        HostProduct prod{W + i * kWeights};
-        d[i] = instance_dir(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                            misc.data() + i * kRevMisc, Scaler(scale), prod, td[i]);
+        HostProduct<BF16> prod{W + i * kWeights};
+        if (BF16)
+          d[i] = instance_dir<true>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                    misc.data() + i * kRevMisc, 1.f / scale, prod, td[i]);
+        else
+          d[i] = instance_dir<false>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                     misc.data() + i * kRevMisc, Scaler(scale), prod, td[i]);
       } else {
         float tl[3];
         d[i] = box_dir(BoxGrad(x, loc + 3 * i, rot + 9 * i, half + 3 * i), v, rot + 9 * i, tl,
@@ -179,6 +193,14 @@ extern "C" void host_dir_forward(int P, int N, const float* pos, const float* di
     }
     u[p] = dir_union(N, valid, any_valid, w + p * N, d.data(), td.data(), tau, u_dot[p]);
   }
+}
+
+extern "C" void host_dir_forward(int P, int N, const float* pos, const float* dirs,
+                                 const float* loc, const float* rot, const float* half,
+                                 const float* valid, const float* W, float tau, float scale,
+                                 int bf16, float* u, float* w, float* u_dot) {
+  (bf16 ? dir_forward<true> : dir_forward<false>)(P, N, pos, dirs, loc, rot, half, valid, W, tau,
+                                                  scale, u, w, u_dot);
 }
 
 // The same function in the form K3 took before its tensor-core redesign:
@@ -207,14 +229,50 @@ extern "C" void host_dir_forward_scalar(int P, int N, const float* pos, const fl
 
 // K1's per-point loop: with the residual field instance_rev, the sweep the
 // kernel runs, with its layer products as scalar loops and its residuals
-// in a strided column; box-only the box's analytic gradient, as on the card
+// in a strided column; box-only the box's analytic gradient, as on the card.
+// bf16 (with W, rounded by the caller): the default precision's two passes,
+// the values and the union, then each sweep seeded with its union cotangent.
 extern "C" void host_forward_rev(int P, int N, const float* pos, const float* loc,
                                  const float* rot, const float* half, const float* valid,
-                                 const float* W, float tau, float scale, float* u, float* w,
-                                 float* grad) {
+                                 const float* W, float tau, float scale, int bf16, float* u,
+                                 float* w, float* grad) {
   const bool any_valid = any_valid_of(N, valid);
   std::vector<float> column(kRevResLayers * kRevRes * 2), misc = misc_blocks(N, W);
-  for (int p = 0; p < P; ++p) {
+  const RevStore res{column.data() + 1, 2};
+  for (int p = 0; bf16 && W && p < P; ++p) {
+    OnlineUnion<3> acc;
+    const float zero[3] = {0.f, 0.f, 0.f};
+    float g[3];
+    for (int i = 0; i < N; ++i) {
+      if (!instance_active(valid[i], any_valid)) continue;
+      HostProduct<true> prod{W + i * kWeights};
+      const float d = instance_rev<true>(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                         misc.data() + i * kRevMisc, 1.f / scale, prod, res,
+                                         [](float) { return 0.f; }, g, false);
+      const float l = union_logit(d, valid[i], tau);
+      w[p * N + i] = l;
+      acc.add(l, d, zero);
+    }
+    float du[3], sum[3] = {0.f, 0.f, 0.f};
+    u[p] = acc.finish(tau, du);
+    for (int i = 0; i < N; ++i) {
+      if (!instance_active(valid[i], any_valid)) {
+        w[p * N + i] = 0.f;
+        continue;
+      }
+      const float vi = valid[i];
+      auto seed = [&](float di) {
+        return expf(union_logit(di, vi, tau) - acc.mx) / acc.z * (1.f + (u[p] - di) / tau);
+      };
+      HostProduct<true> prod{W + i * kWeights};
+      instance_rev<true>(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                         misc.data() + i * kRevMisc, 1.f / scale, prod, res, seed, g);
+      for (int j = 0; j < 3; ++j) sum[j] += g[j];
+      w[p * N + i] = acc.weight(w[p * N + i]);
+    }
+    for (int j = 0; j < 3; ++j) grad[p * 3 + j] = sum[j];
+  }
+  for (int p = 0; !(bf16 && W) && p < P; ++p) {
     OnlineUnion<3> acc;
     for (int i = 0; i < N; ++i) {
       if (!instance_active(valid[i], any_valid)) {
@@ -223,10 +281,10 @@ extern "C" void host_forward_rev(int P, int N, const float* pos, const float* lo
       }
       float g[3], d;
       if (W) {
-        HostProduct prod{W + i * kWeights};
-        d = instance_rev(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                         misc.data() + i * kRevMisc, 1.f / scale, prod,
-                         RevStore{column.data() + 1, 2}, g);
+        HostProduct<false> prod{W + i * kWeights};
+        d = instance_rev<false>(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                misc.data() + i * kRevMisc, 1.f / scale, prod, res,
+                                [](float) { return 1.f; }, g);
       } else {
         const BoxGrad box(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i);
         local_to_world(rot + 9 * i, box.gl, g);
@@ -285,11 +343,12 @@ extern "C" void host_sphere_trace(int F, int R, int N, int num_iterations, const
 
 // K2's per-point work, summed over points in order: out [N, kParams]. As on
 // the card, the weights are copied into the Padded layout and the LayerNorm
-// residuals kept in a strided column.
-extern "C" void host_backward(int P, int N, const float* pos, const float* dg, const float* du,
-                              const float* dw, const float* loc, const float* rot,
-                              const float* half, const float* valid, const float* W, float tau,
-                              float scale, float* out) {
+// residuals kept in a strided column. BF16: the default precision (W rounded
+// by the caller).
+template <bool BF16>
+void backward(int P, int N, const float* pos, const float* dg, const float* du, const float* dw,
+              const float* loc, const float* rot, const float* half, const float* valid,
+              const float* W, float tau, float scale, float* out) {
   std::vector<float> padded(W ? N * Padded::kSize : 0);
   for (int i = 0; W && i < N; ++i)
     for (int l = 0; l <= 4; ++l) {
@@ -312,21 +371,29 @@ extern "C" void host_backward(int P, int N, const float* pos, const float* dg, c
       if (!active[i]) continue;
       float tl[1][3], t[1];
       to_local(v, rot + 9 * i, tl[0]);
-      d[i] = instance_forward<1>(x, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                                 W ? W + i * kWeights : nullptr, 1.f / scale, tl, t);
+      d[i] = instance_forward<1, BF16>(x, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                       W ? W + i * kWeights : nullptr, 1.f / scale, tl, t);
       td[i] = t[0];
     }
     union_backward(N, active.data(), d.data(), td.data(), valid, tau, du[p], dw + p * N, 1);
     for (int i = 0; i < N; ++i) {
       if (!active[i]) continue;
-      HostSink sink{out + i * kParams};
+      HostSink<BF16> sink{out + i * kParams};
       float geo[kGeo] = {};
-      instance_backward(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                        W ? padded.data() + i * Padded::kSize : nullptr, 1.f / scale, d[i],
-                        td[i], geo, sink, ColumnStore{column.data(), stride});
+      instance_backward<BF16>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                              W ? padded.data() + i * Padded::kSize : nullptr, 1.f / scale, d[i],
+                              td[i], geo, sink, ColumnStore{column.data(), stride});
       for (int k = 0; k < kGeo; ++k) out[i * kParams + kWeights + k] += geo[k];
     }
   }
+}
+
+extern "C" void host_backward(int P, int N, const float* pos, const float* dg, const float* du,
+                              const float* dw, const float* loc, const float* rot,
+                              const float* half, const float* valid, const float* W, float tau,
+                              float scale, int bf16, float* out) {
+  (bf16 ? backward<true> : backward<false>)(P, N, pos, dg, du, dw, loc, rot, half, valid, W, tau,
+                                            scale, out);
 }
 """
 
@@ -361,7 +428,7 @@ def _err(a, b):
     return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1.0)
 
 
-def _twin_pullback(x, use_rdf, device="cpu"):
+def _twin_pullback(x, use_rdf, device="cpu", precision="highest"):
     """The twin's (u, w, grad_x u) and the pullback of (du, dw, dg) to
     (loc, rot, half[, weights])."""
     c = {k: _t(v).to(device) for k, v in x.items()}
@@ -370,7 +437,7 @@ def _twin_pullback(x, use_rdf, device="cpu"):
         params = params[:3]
     u, w, g = tff.scene_eval_with_grad(c["pos"], *params[:3], c["valid"],
                                        params[3] if use_rdf else None,
-                                       torch.tensor(TAU, device=device))
+                                       torch.tensor(TAU, device=device), precision=precision)
     loss = (u * c["du"]).sum() + (w * c["dw"]).sum() + (g * c["dg"]).sum()
     grads = torch.autograd.grad(loss, params)
     return [t.detach().cpu().numpy() for t in (u, w, g, *grads)]
@@ -389,10 +456,10 @@ def host_lib(tmp_path_factory):
                     "-o", str(lib_path), str(source)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.host_dir_forward.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32] + [ptr] * 3
+    lib.host_dir_forward.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32, i32] + [ptr] * 3
     lib.host_dir_forward_scalar.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32, ptr]
-    lib.host_backward.argtypes = [i32, i32] + [ptr] * 9 + [f32, f32, ptr]
-    lib.host_forward_rev.argtypes = [i32, i32] + [ptr] * 6 + [f32, f32] + [ptr] * 3
+    lib.host_backward.argtypes = [i32, i32] + [ptr] * 9 + [f32, f32, i32, ptr]
+    lib.host_forward_rev.argtypes = [i32, i32] + [ptr] * 6 + [f32, f32, i32] + [ptr] * 3
     lib.host_sphere_trace.argtypes = [i32] * 4 + [ptr] * 8 + [f32] * 4 + [ptr] * 3
     return lib
 
@@ -401,13 +468,21 @@ def _ptr(a):
     return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _host_dir_forward(lib, x, use_rdf):
+def _host_dir_forward(lib, x, use_rdf, bf16=False):
+    """K3's host loop; ``bf16``: the default precision, on weights rounded
+    here as the kernel rounds them where it stages them."""
     p, n = x["pos"].shape[0], x["loc"].shape[0]
     u, w, ud = np.zeros(p, np.float32), np.zeros((p, n), np.float32), np.zeros(p, np.float32)
     lib.host_dir_forward(p, n, *map(_ptr, (x["pos"], x["dirs"], x["loc"], x["rot"], x["half"],
-                                           x["valid"], x["w"] if use_rdf else None)),
-                         TAU, SCALE, _ptr(u), _ptr(w), _ptr(ud))
+                                           x["valid"], _host_weights(x, use_rdf, bf16))),
+                         TAU, SCALE, int(bf16), _ptr(u), _ptr(w), _ptr(ud))
     return u, w, ud
+
+
+def _host_weights(x, use_rdf, bf16):
+    if not use_rdf:
+        return None
+    return tff.bf16_round(_t(x["w"])).numpy() if bf16 else x["w"]
 
 
 @pytest.mark.parametrize("use_rdf", [False, True])
@@ -430,12 +505,12 @@ def test_host_forward_math_matches_twin(host_lib, use_rdf, valid):
     assert _err(ud, ud_twin[2].numpy()) <= 2e-5
 
 
-def _host_forward_rev(lib, x, use_rdf):
+def _host_forward_rev(lib, x, use_rdf, bf16=False):
     p, n = x["pos"].shape[0], x["loc"].shape[0]
     u, w, g = np.zeros(p, np.float32), np.zeros((p, n), np.float32), np.zeros((p, 3), np.float32)
     lib.host_forward_rev(p, n, *map(_ptr, (x["pos"], x["loc"], x["rot"], x["half"], x["valid"],
-                                           x["w"] if use_rdf else None)),
-                         TAU, SCALE, _ptr(u), _ptr(w), _ptr(g))
+                                           _host_weights(x, use_rdf, bf16))),
+                         TAU, SCALE, int(bf16), _ptr(u), _ptr(w), _ptr(g))
     return u, w, g
 
 
@@ -471,17 +546,22 @@ def test_host_backward_math_matches_twin_pullback(host_lib, use_rdf, valid):
     """K2's per-point reverse sweep: union, MLP (with the LayerNorm's
     second-order terms) and box, summed over points."""
     x = _inputs(seed=1, valid=valid)
-    p, n = x["pos"].shape[0], x["loc"].shape[0]
-    out = np.zeros((n, fk.NUM_WEIGHTS + 15), np.float32)
-    host_lib.host_backward(p, n, *map(_ptr, (x["pos"], x["dg"], x["du"], x["dw"], x["loc"],
-                                             x["rot"], x["half"], x["valid"],
-                                             x["w"] if use_rdf else None)),
-                           TAU, SCALE, _ptr(out))
-    geo = out[:, fk.NUM_WEIGHTS:]
-    got = [geo[:, 0:3], geo[:, 3:12].reshape(n, 3, 3), geo[:, 12:15], out[:, :fk.NUM_WEIGHTS]]
+    got = _host_backward(host_lib, x, use_rdf)
     ref = _twin_pullback(x, use_rdf)[3:]
     for name, a, b in zip(("dloc", "drot", "dhalf", "dweights"), got, ref):
         assert _err(a, b) <= 1e-4, name
+
+
+def _host_backward(lib, x, use_rdf, bf16=False):
+    """K2's host loop: (dloc, drot, dhalf, dweights); ``bf16`` as in
+    ``_host_dir_forward``."""
+    p, n = x["pos"].shape[0], x["loc"].shape[0]
+    out = np.zeros((n, fk.NUM_WEIGHTS + 15), np.float32)
+    lib.host_backward(p, n, *map(_ptr, (x["pos"], x["dg"], x["du"], x["dw"], x["loc"], x["rot"],
+                                        x["half"], x["valid"], _host_weights(x, use_rdf, bf16))),
+                      TAU, SCALE, int(bf16), _ptr(out))
+    geo = out[:, fk.NUM_WEIGHTS:]
+    return [geo[:, 0:3], geo[:, 3:12].reshape(n, 3, 3), geo[:, 12:15], out[:, :fk.NUM_WEIGHTS]]
 
 
 def _trace_inputs(frames=2, n=4, r=64, seed=0, valid_counts=None):
@@ -598,14 +678,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_pullback(x, use_rdf, device):
+def _kernel_pullback(x, use_rdf, device, precision="highest"):
     c = {k: _t(v).to(device) for k, v in x.items()}
     params = [c[k].clone().requires_grad_() for k in ("loc", "rot", "half", "w")]
     if not use_rdf:
         params = params[:3]
     u, w, g = fk.fused_field_with_grad(c["pos"], *params[:3], c["valid"],
                                        params[3] if use_rdf else None,
-                                       torch.tensor(TAU, device=device))
+                                       torch.tensor(TAU, device=device), precision=precision)
     loss = (u * c["du"]).sum() + (w * c["dw"]).sum() + (g * c["dg"]).sum()
     grads = torch.autograd.grad(loss, params)
     return [t.detach().cpu().numpy() for t in (u, w, g, *grads)]
@@ -638,6 +718,58 @@ def test_kernels_match_twins_on_card(cuda, use_rdf, n, valid):
         assert _err(a.cpu().numpy(), b.cpu().numpy()) <= 2e-4, name
     assert (fk.field_forward.launches, fk.field_backward.launches,
             fk.field_dir_forward.launches) == tuple(k + 1 for k in launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("n, valid", [
+    (8, (1.0,) * 6 + (0.0,) * 2),     # the main path's shape
+    (12, (1.0,) * 11 + (0.0,)),       # two groups of staged weights
+    (4, (0.0,) * 4),                  # no valid instance: uniform weights
+])
+def test_kernels_match_twins_in_both_precisions_on_card(cuda, precision, n, valid):
+    """K1-K3 with the residual field at each precision against the float64
+    twin at that precision on the card. "highest": every output within 2e-4
+    of the twin's scale, as above. "default" (bf16 operands), by the bars of
+    ``chip_smoke.RMS_HELD``: the per-point outputs and the weights' pullback
+    within 2e-4 in RMS relative to scale (at isolated entries an f32 and a
+    float64 evaluation round an operand to different bf16 neighbours), grad_x
+    u, the weights' pullback and u_dot at least 10x nearer the rounded twin
+    than the strict one, the box pullbacks (sums over every point, whose RMS
+    those flips take to 2e-4 and beyond) at least 4x; each default-mode
+    launch counted in ``bf16_launches``."""
+    x = _inputs(n=n, p=3000, valid=valid)
+    x64 = {k: v.astype(np.float64) for k, v in x.items()}
+    counts = [fn.bf16_launches for fn in (fk.field_forward, fk.field_backward,
+                                          fk.field_dir_forward)]
+
+    def rms(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.sqrt(np.mean((a - b) ** 2))) / max(float(np.abs(b).max()), 1.0)
+
+    def outputs(fn, dir_fn, data, prec):
+        c = {k: _t(v).to(cuda) for k, v in data.items()}
+        dirs = dir_fn(c["pos"], c["dirs"], c["loc"], c["rot"], c["half"], c["valid"], c["w"],
+                      torch.tensor(TAU, device=cuda), precision=prec)
+        return [*fn(data, True, cuda, precision=prec), *(t.cpu().numpy() for t in dirs)]
+
+    got = outputs(_kernel_pullback, fk.fused_field_dir_forward, x, precision)
+    ref = outputs(_twin_pullback, tff.scene_eval_dir, x64, precision)
+    names = ("u", "w", "grad", "dloc", "drot", "dhalf", "dweights", "u3", "w3", "u_dot")
+    if precision == "highest":
+        for name, a, b in zip(names, got, ref):
+            assert _err(a, b) <= 2e-4, name
+        return
+    strict = outputs(_twin_pullback, tff.scene_eval_dir, x64, "highest")
+    for name, a, b, c in zip(names, got, ref, strict):
+        if name in ("dloc", "drot", "dhalf"):
+            assert rms(a, c) >= 4 * rms(a, b), name
+            continue
+        assert rms(a, b) <= 2e-4, name
+        if name in ("grad", "dweights", "u_dot"):
+            assert rms(a, c) >= 10 * rms(a, b), name
+    assert [fn.bf16_launches for fn in (fk.field_forward, fk.field_backward,
+                                        fk.field_dir_forward)] == [k + 1 for k in counts]
 
 
 @pytest.mark.gpu
@@ -914,6 +1046,135 @@ def test_rev_forward_products_need_the_split_tf32_products():
     assert float(np.abs(g1 - g).max()) / scale > 2e-4
     assert float(np.abs(g3 - g).max()) / scale <= 2e-6
     assert float(np.abs(u3 - u).max()) <= 2e-6
+
+
+def _bf16(x):
+    """``cvt.rn.bf16x2.f32`` on each value: 8 significant bits, to nearest
+    even (finite x), as f32."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _mma_bf16_k8(a_words, b_words):
+    """``mma.sync.m16n8k8.row.col.f32.bf16.bf16.f32`` on 32 lanes'
+    registers, laid out as the PTX ISA lays out the .bf16 fragments (gid =
+    lane / 4, t = lane % 4; the lower k in a word's low half): a0 = A[gid,
+    2t | 2t + 1], a1 = A[gid + 8, 2t | 2t + 1], b0 = B[2t | 2t + 1, gid].
+    ``a_words[lane] = ((lo, hi), (lo, hi))`` and ``b_words[lane] = (lo,
+    hi)``, each value rounded to bf16; returns A B in float64 (the products
+    of bf16 values are exact in f32)."""
+    a, b = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        gid, t = lane >> 2, lane & 3
+        (a[gid, 2 * t], a[gid, 2 * t + 1]), (a[gid + 8, 2 * t], a[gid + 8, 2 * t + 1]) = \
+            a_words[lane]
+        b[2 * t, gid], b[2 * t + 1, gid] = b_words[lane]
+    return a @ b
+
+
+def _warp_product_bf16(a_of, b_of, k, nt):
+    """C [16, 8 nt] = A [16, k] B [k, 8 nt] through _mma_bf16_k8, each
+    lane's words read as the kernels read them: A's word at k-step s from
+    (row, s * 8 + 2t) and (row, s * 8 + 2t + 1) (``a_of(row, col)``;
+    convert_block's packing of the weights, or the backward sink's rows of
+    hbar), B's from the staging rows s * 8 + 2t and s * 8 + 2t + 1 of
+    column 8 n + gid (``b_of(row, col)``). Also counts how many times each
+    element of A and of B was read."""
+    c = np.zeros((16, 8 * nt))
+    uses_a, uses_b = np.zeros((16, k), int), np.zeros((k, 8 * nt), int)
+    for s in range(k // 8):
+        a_words = []
+        for lane in range(32):
+            gid, t = lane >> 2, lane & 3
+            pairs = []
+            for row in (gid, gid + 8):
+                cols = (s * 8 + 2 * t, s * 8 + 2 * t + 1)
+                pairs.append(tuple(float(_bf16(a_of(row, col))) for col in cols))
+                for col in cols:
+                    uses_a[row, col] += 1
+            a_words.append(tuple(pairs))
+        for n in range(nt):
+            b_words = []
+            for lane in range(32):
+                gid, t = lane >> 2, lane & 3
+                rows, col = (s * 8 + 2 * t, s * 8 + 2 * t + 1), 8 * n + gid
+                b_words.append(tuple(float(_bf16(b_of(row, col))) for row in rows))
+                for row in rows:
+                    uses_b[row, col] += 1
+            c[:, 8 * n:8 * n + 8] += _mma_bf16_k8(a_words, b_words)
+    return c, uses_a, uses_b
+
+
+def test_bf16_fragments_take_each_operand_once():
+    """The default precision's layer products (warp_product.cuh's bf16 path:
+    K1's forward W_l a and reverse W_l^T hbar, K3's value and tangent
+    columns) and K2's weight-gradient sink (A = hbar | thbar over the
+    chunk's points, B = a | ta), emulated in numpy from the lanes'
+    registers by the PTX ISA's fragment layout: every element of both
+    operands is read exactly once, rounded to bf16, so each product is
+    bf16(A) bf16(B) with exact products; one bf16 product of f32 operands
+    is then off by more than 1e-3 of scale, where the strict mode's 3xTF32
+    products hold 1e-6."""
+    rng = np.random.default_rng(0)
+    w = (rng.normal(size=(16, 17)) * 0.3).astype(np.float32)       # a hidden layer, bias last
+    act = np.tanh(rng.normal(size=(16, 32))).astype(np.float32)    # 16 staging rows, 32 points
+    hbar = (rng.standard_t(2.5, size=(16, 32)) * 1e-3).astype(np.float32)
+    cases = {
+        "forward W a": (lambda r, k: w[r, k], lambda r, n: act[r, n], w[:, :16], act),
+        "reverse W^T hbar": (lambda r, k: w[k, r], lambda r, n: hbar[r, n], w[:16, :16].T, hbar),
+        # the sink: A[o, p] = hbar of output o at point p, B[p, i] = a of input i
+        "sink hbar a^T": (lambda r, k: hbar[r, k], lambda p, i: act[i, p], hbar, act.T),
+    }
+    for name, (a_of, b_of, a_mat, b_mat) in cases.items():
+        k, nt = a_mat.shape[1], b_mat.shape[1] // 8
+        c, uses_a, uses_b = _warp_product_bf16(a_of, b_of, k, nt)
+        assert (uses_a == 1).all() and (uses_b == 1).all(), name
+        want = _bf16(a_mat).astype(np.float64) @ _bf16(b_mat).astype(np.float64)
+        np.testing.assert_allclose(c, want, rtol=1e-12, atol=1e-18, err_msg=name)
+        exact = a_mat.astype(np.float64) @ b_mat.astype(np.float64)
+        scale = np.abs(exact).max()
+        assert np.abs(c - exact).max() / scale > 1e-3, name
+        ab, bb = _tf32(a_mat), _tf32(b_mat)
+        f64 = lambda x, y: x.astype(np.float64) @ y.astype(np.float64)  # noqa: E731
+        three = f64(_tf32(a_mat - ab), bb) + f64(ab, _tf32(b_mat - bb)) + f64(ab, bb)
+        assert np.abs(three - exact).max() / scale <= 1e-6, name
+
+
+@pytest.mark.parametrize("valid", [(1.0, 1.0, 1.0, 0.0), (0.0, 0.0, 0.0, 0.0)])
+def test_host_default_precision_math_matches_the_rounded_twin(host_lib, valid):
+    """The kernels' math in the default precision (BF16, field_common.cuh
+    with the bf16 forms of the host products and sink): K1's two passes,
+    each instance's reverse sweep seeded with its union cotangent; K3's
+    one-tangent forward; K2's recompute, reverse and weight-gradient sums;
+    against the twin at "default" (bf16_matmul). Each output within 1e-4 of
+    the rounded twin in RMS relative to scale (the host measures at most
+    4.1e-5, dloc in the frame with no valid instance: the scalar products
+    sum in another order than the twin's, so a few operands round apart),
+    and grad_x u, u_dot and the weights' pullback at least 10x nearer it
+    than the strict twin (the host measures 75x and more)."""
+    x = _inputs(seed=4, valid=valid)
+
+    def rms(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.sqrt(np.mean((a - b) ** 2))) / max(float(np.abs(b).max()), 1.0)
+
+    host = [*_host_forward_rev(host_lib, x, True, bf16=True),
+            *_host_backward(host_lib, x, True, bf16=True),
+            *_host_dir_forward(host_lib, x, True, bf16=True)]
+    names = ("u", "w", "grad", "dloc", "drot", "dhalf", "dweights", "u3", "w3", "u_dot")
+    twins = {}
+    for precision in ("default", "highest"):
+        u, w, g, *grads = _twin_pullback(x, True, precision=precision)
+        dirf = tff.scene_eval_dir(*(_t(x[k]) for k in ("pos", "dirs", "loc", "rot", "half",
+                                                       "valid")),
+                                  _t(x["w"]), torch.tensor(TAU), precision=precision)
+        twins[precision] = [u, w, g, grads[0], grads[1], grads[2], grads[3],
+                            *(t.numpy() for t in dirf)]
+    for name, got, rounded, strict in zip(names, host, twins["default"], twins["highest"]):
+        assert rms(got, rounded) <= 1e-4, name
+        if name in ("grad", "u_dot", "dweights"):
+            assert rms(got, strict) >= 10 * rms(got, rounded), name
 
 
 @pytest.mark.parametrize("use_rdf", [False, True])

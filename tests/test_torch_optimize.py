@@ -28,6 +28,8 @@ from vsrd_tpu_torch.pipeline import frame as tfm, optimize as topt
 from vsrd_tpu_torch.rendering import field_kernels, samplers as tsamplers
 from vsrd_tpu_torch.utils import convert
 
+from torch_mxu import interpret, port_unrounded
+
 torch.set_num_threads(2)
 
 RAYS, SAMPLES = 16, 6
@@ -92,19 +94,34 @@ def test_compute_loss_and_gradients_match(setup, shared_noise, use_rdf):
 def test_full_field_coarse_pass_matches(setup, shared_noise):
     """``kernel_dir_coarse=False`` in the fast mode: the coarse pass
     evaluates the full field with its spatial gradient, which is what the
-    JAX package's field path does on the CPU, so losses and gradients
-    match it in the residual phase too."""
+    JAX package's kernel path does with ``pallas_dir_coarse=False``, so
+    losses and gradients match it in the residual phase too. Both in the
+    default mode (``pallas_matmul_precision="default"``: its fast encoding
+    and reverse-sweep gradient), the JAX side through its Pallas kernels in
+    interpret mode (``torch_mxu.interpret``; on the CPU it otherwise takes
+    its XLA path), with f32 products on both sides: the JAX package's own
+    on the CPU, the port's twins without their bf16 rounding
+    (``torch_mxu.port_unrounded``). With the rounding on both sides
+    (``mxu_default``) two f32 implementations round a few operands apart,
+    which moves the eikonal term by ~1.5e-5 and the hypernetwork's
+    gradients by up to 1e-3 of scale, 20-40x below the rounding's own
+    effect; ``test_torch_precision.py`` holds the rounding to the JAX
+    package's."""
     cfg = topt.OptimizationConfig(kernel_dir_coarse=False, **CFG)
     assert cfg.kernel_matmul_precision == "default"
-    _compare_loss_and_gradients(setup, cfg, use_rdf=True)
+    jcfg = jopt.OptimizationConfig(pallas_dir_coarse=False, pallas_tile=32, pallas_bwd_tile=32,
+                                   pallas_box_tile=32, **CFG)
+    assert jcfg.pallas_matmul_precision == "default"
+    with interpret(), port_unrounded():
+        _compare_loss_and_gradients(setup, cfg, use_rdf=True, jcfg=jcfg)
 
 
-def _compare_loss_and_gradients(setup, tcfg, use_rdf):
+def _compare_loss_and_gradients(setup, tcfg, use_rdf, jcfg=JCFG):
     jf, tf, params, ray_idx = setup
     step = 5
 
     def loss_fn(p):
-        return jopt.compute_loss(p, jf, jnp.asarray(step), jax.random.PRNGKey(2), JCFG,
+        return jopt.compute_loss(p, jf, jnp.asarray(step), jax.random.PRNGKey(2), jcfg,
                                  use_rdf, ray_indices=jnp.asarray(ray_idx, jnp.int32))
 
     (total, aux), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)

@@ -17,7 +17,8 @@
 // and active instance (1,552 for the value, 1,552 for its tangent) and ~1,800
 // FLOP of per-point work (box SDF and its tangent, 24 sincos, 4 LayerNorms
 // with their tangents and exact GELU, the union); with the products on the
-// tensor cores in 3xTF32 they set the bound (chip_smoke.py::kernel_bound).
+// tensor cores in 3xTF32 they set the bound (chip_smoke.py::kernel_bound),
+// in bf16 the per-point work does.
 //
 // The design (grid (point tiles of T, F), one point per thread, one warp
 // owns 32 consecutive points):
@@ -35,7 +36,9 @@
 //     layer products on the tensor cores (warp_product.cuh): the value and
 //     its tangent along the ray are two column blocks of ONE product per
 //     layer, C [16 x 64] = W_l [A_value | A_tangent] over the warp's 32
-//     points (8 n-tiles of mma.sync.m16n8k8, 3xTF32), so each A fragment
+//     points (8 n-tiles of mma.sync.m16n8k8, 3xTF32, or one bf16 mma each
+//     in the default precision, the tangent columns rounded as the values
+//     are, as the JAX body stacks them), so each A fragment
 //     is loaded once per k-step for both. Layer 4 (one output) stays on the
 //     CUDA cores. Each instance's 1,617 weights are copied with cp.async
 //     while the previous instance computes, then split once into the 12
@@ -101,7 +104,10 @@ struct DirLayout {
 // columns (n-tiles 0-3) and tangent columns (n-tiles 4-7), A from the
 // instance's fragment blocks, B from the warp's staging rows (row k at act +
 // k * kDirRowStride). Every lane calls every method, so the warp stays
-// converged around each mma.
+// converged around each mma. BF16: the default precision, one bf16 mma per
+// product (warp_product.cuh); the bias rows (misc) are rounded where they
+// are staged.
+template <bool BF16>
 struct WarpDirProduct {
   const unsigned* frag;
   float* act;
@@ -120,14 +126,16 @@ struct WarpDirProduct {
     init_acc<4>(c + 4, nullptr, lane);
   }
   __device__ __forceinline__ void forward(int l, int m) {
-    warp_product<2, 8, kDirRowStride>(frag, l == 0 ? fwd_block(0, 2 * m) : fwd_block(l, 0), act,
-                                      lane, c);
+    warp_product<2, 8, kDirRowStride, BF16>(frag, l == 0 ? fwd_block(0, 2 * m) : fwd_block(l, 0),
+                                            act, lane, c);
   }
   __device__ __forceinline__ void store() { store_acc<8, kDirRowStride>(act, c, lane); }
 };
 
 // Grid (ceil(P / T), F), T threads a CTA; see the note at the top of the file.
-template <bool RDF, int T>
+// BF16 (with the residual field): the default precision, with the JAX
+// body's rounded 1 / scale in the encoding.
+template <bool RDF, bool BF16, int T>
 __global__ void __launch_bounds__(T, RDF ? 512 / T : 1)
 tangent_forward_kernel(int P, int N, const float* __restrict__ pos,
                        const float* __restrict__ dirs, const float* __restrict__ loc,
@@ -190,7 +198,8 @@ tangent_forward_kernel(int P, int N, const float* __restrict__ pos,
   const float x[3] = {sx[q], sx[q + 1], sx[q + 2]}, v[3] = {sv[q], sv[q + 1], sv[q + 2]};
 
   if constexpr (RDF) {
-    const Scaler inv(scale);
+    const Scaler exact(scale);
+    const float rounded = 1.f / scale;
     // the instances whose field this CTA evaluates: active, in a kept group
     auto computed = [&](int i) {
       return instance_active(svalid[i], any_valid) && group_kept(cta_keep, i);
@@ -214,12 +223,17 @@ tangent_forward_kernel(int P, int N, const float* __restrict__ pos,
         const int next = next_computed(i);
         asm volatile("cp.async.wait_group 0;" ::: "memory");
         __syncthreads();  // raw holds instance i; every warp is done with the last one's fragments
-        for (int b = warp; b < kFwdBlocks; b += L::kWarps) convert_block(raw, frag, b, lane);
-        for (int e = tid; e < kRevMisc; e += T) misc[e] = raw[misc_index(e)];
+        for (int b = warp; b < kFwdBlocks; b += L::kWarps) convert_block<BF16>(raw, frag, b, lane);
+        for (int e = tid; e < kRevMisc; e += T) misc[e] = operand<BF16>(raw[misc_index(e)]);
         __syncthreads();  // fragments ready, raw free
         if (next < N) prefetch(next);
-        WarpDirProduct prod(frag, stage, lane);
-        d = instance_dir(x, v, sloc + 3 * i, srot + 9 * i, shalf + 3 * i, misc, inv, prod, td);
+        WarpDirProduct<BF16> prod(frag, stage, lane);
+        if constexpr (BF16)
+          d = instance_dir<true>(x, v, sloc + 3 * i, srot + 9 * i, shalf + 3 * i, misc, rounded,
+                                 prod, td);
+        else
+          d = instance_dir<false>(x, v, sloc + 3 * i, srot + 9 * i, shalf + 3 * i, misc, exact,
+                                  prod, td);
       }
       if (!group_kept(point_keep, i)) {  // this point's tile drops the group
         d = kSkipDistance;
@@ -265,12 +279,12 @@ tangent_forward_kernel(int P, int N, const float* __restrict__ pos,
   }
 }
 
-template <bool RDF, int T>
+template <bool RDF, int T, bool BF16 = false>
 cudaError_t dir_attributes(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(tangent_forward_kernel<RDF, T>,
+  cudaError_t err = cudaFuncSetAttribute(tangent_forward_kernel<RDF, BF16, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(tangent_forward_kernel<RDF, T>,
+    err = cudaFuncSetAttribute(tangent_forward_kernel<RDF, BF16, T>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   return err;
@@ -282,17 +296,17 @@ inline int dir_threads(bool rdf, int N) {
   return rdf && DirLayout<kDirThreadsRdf>::bytes(true, N) <= kMaxSmem ? kDirThreadsRdf : 128;
 }
 
-template <bool RDF, int T>
+template <bool RDF, int T, bool BF16 = false>
 cudaError_t launch_dir_forward(int F, int P, int N, const float* pos, const float* dirs,
                                const float* loc, const float* rot, const float* half,
                                const float* valid, const float* weights, const float* tau,
                                float scale, const int* mask, int mask_tile, float* u, float* w,
                                float* u_dot, cudaStream_t stream) {
   const size_t smem = DirLayout<T>::bytes(RDF, N);
-  const cudaError_t err = dir_attributes<RDF, T>(smem);
+  const cudaError_t err = dir_attributes<RDF, T, BF16>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((P + T - 1) / T, F);
-  tangent_forward_kernel<RDF, T><<<grid, T, smem, stream>>>(
+  tangent_forward_kernel<RDF, BF16, T><<<grid, T, smem, stream>>>(
       P, N, pos, dirs, loc, rot, half, valid, weights, tau, scale, mask, mask_tile, u, w, u_dot);
   return cudaGetLastError();
 }
@@ -312,20 +326,24 @@ extern "C" int vsrd_dir_forward_info(int N, int rdf, int* threads, int* smem_byt
     err = dir_attributes<true, TR>(*smem_bytes);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          ctas_per_sm, tangent_forward_kernel<true, TR>, TR, *smem_bytes);
+          ctas_per_sm, tangent_forward_kernel<true, false, TR>, TR, *smem_bytes);
   } else {
     *smem_bytes = (int)DirLayout<128>::bytes(rdf, N);
     err = rdf ? dir_attributes<true, 128>(*smem_bytes) : dir_attributes<false, 128>(*smem_bytes);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          ctas_per_sm, rdf ? tangent_forward_kernel<true, 128> : tangent_forward_kernel<false, 128>,
+          ctas_per_sm,
+          rdf ? tangent_forward_kernel<true, false, 128>
+              : tangent_forward_kernel<false, false, 128>,
           128, *smem_bytes);
   }
   return (int)err;
 }
 
-// mask: nullptr, or the skip mode's keep mask [F][ceil(N / 8)][ceil(P / mask_tile)]
-extern "C" int vsrd_dir_forward(int F, int P, int N, int rdf, const float* pos,
+// mask: nullptr, or the skip mode's keep mask [F][ceil(N / 8)][ceil(P / mask_tile)];
+// bf16: the default precision (box-only launches have no products, so it
+// does not change them)
+extern "C" int vsrd_dir_forward(int F, int P, int N, int rdf, int bf16, const float* pos,
                                 const float* dirs, const float* loc, const float* rot,
                                 const float* half, const float* valid, const float* weights,
                                 const float* tau, float scale, const int* mask, int mask_tile,
@@ -336,7 +354,15 @@ extern "C" int vsrd_dir_forward(int F, int P, int N, int rdf, const float* pos,
   if (!rdf)
     return launch_dir_forward<false, 128>(F, P, N, pos, dirs, loc, rot, half, valid, nullptr,
                                           tau, scale, mask, mask_tile, u, w, u_dot, s);
-  return dir_threads(true, N) == kDirThreadsRdf
+  const bool wide = dir_threads(true, N) == kDirThreadsRdf;
+  if (bf16)
+    return wide ? launch_dir_forward<true, kDirThreadsRdf, true>(
+                      F, P, N, pos, dirs, loc, rot, half, valid, weights, tau, scale, mask,
+                      mask_tile, u, w, u_dot, s)
+                : launch_dir_forward<true, 128, true>(F, P, N, pos, dirs, loc, rot, half, valid,
+                                                      weights, tau, scale, mask, mask_tile, u, w,
+                                                      u_dot, s);
+  return wide
              ? launch_dir_forward<true, kDirThreadsRdf>(F, P, N, pos, dirs, loc, rot, half, valid,
                                                         weights, tau, scale, mask, mask_tile, u,
                                                         w, u_dot, s)

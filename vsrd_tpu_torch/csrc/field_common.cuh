@@ -25,6 +25,7 @@
 #pragma once
 
 #include <math.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define VSRD_HD __host__ __device__ __forceinline__
@@ -67,6 +68,46 @@ struct Gelu {
       : cdf(0.5f * (1.f + erff(y * 0.70710678118654752f))),
         pdf(expf(-0.5f * y * y) * 0.39894228040143268f) {}
 };
+
+// ---- The default precision (bf16 operands, f32 sums) ----
+//
+// The JAX package's kernels run their layer products at Precision.DEFAULT
+// unless pallas_matmul_precision is "highest": on the TPU both f32 operands
+// of every product are rounded to bf16 (to nearest, ties to even), the
+// products are exact in f32 and the sums f32. That holds for the bias (a
+// column of the interleaved matrix times an exact row of ones), for the
+// 16 -> 1 last layer and for the tangent columns stacked beside the values,
+// in the forward and in the backward's weight-gradient sums and input
+// cotangents. The functions below take the mode as a template parameter
+// BF16; with it, W holds weights already rounded (bf16_round, once per
+// instance where they are staged), and each per-point operand is rounded
+// where it enters a product. Without it, every line is the strict mode's.
+
+// x rounded to the nearest bf16 value, ties to even, as f32 (finite x; an
+// overflow gives the infinity of x's sign): integer arithmetic on the bits,
+// so that the host harness computes what cvt.rn.bf16x2.f32 does on the card
+VSRD_HD float bf16_round(float x) {
+  unsigned u;
+#if defined(__CUDA_ARCH__)
+  u = __float_as_uint(x);
+#else
+  memcpy(&u, &x, sizeof u);
+#endif
+  u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+#if defined(__CUDA_ARCH__)
+  return __uint_as_float(u);
+#else
+  float r;
+  memcpy(&r, &u, sizeof r);
+  return r;
+#endif
+}
+
+// a product operand in the mode BF16
+template <bool BF16>
+VSRD_HD float operand(float x) {
+  return BF16 ? bf16_round(x) : x;
+}
 
 // Box part of one instance: geometry and its tangents.
 template <int K>
@@ -141,6 +182,33 @@ VSRD_HD void enc_pair(float sym, int k, float& cs, float& sn) {
 #endif
 }
 
+// The 8 (cos, sin) pairs of one coordinate, channel order k*2 + (0 | 1), as
+// the JAX package's fast encoding computes them (_encoding_trig with
+// fast=True, the form of its default precision): cos and sin of the phase
+// sym fl(pi 2^k) at k = 0 and 4, the others by c' = 2 c c - 1 and
+// s' = 2 s c, every product and difference rounded on its own (no fused
+// multiply-add). The default mode encodes so, since its layer-0 operands
+// are rounded to bf16: an encoding ~1e-6 away (enc_dim below) would round
+// operands the other way far more often than f32 noise does (an estimate
+// from the two errors' sizes, 1e-6 against an ulp).
+VSRD_HD void enc_dim_jax(float sym, float e[2 * kFreq]) {
+  VSRD_UNROLL
+  for (int k = 0; k < kFreq; ++k) {
+    if (k % 4 == 0) {
+      enc_pair(sym, k, e[2 * k], e[2 * k + 1]);
+    } else {
+      const float c = e[2 * k - 2], s = e[2 * k - 1];
+#if defined(__CUDA_ARCH__)
+      e[2 * k] = __fsub_rn(__fmul_rn(2.f * c, c), 1.f);
+      e[2 * k + 1] = __fmul_rn(2.f * s, c);
+#else
+      e[2 * k] = 2.f * c * c - 1.f;
+      e[2 * k + 1] = 2.f * s * c;
+#endif
+    }
+  }
+}
+
 // x / scale as one product and one fma: 1 / scale split into hi = fl(1 /
 // scale) and lo = (1 - hi scale) / scale, the fma adding x lo to the exact
 // x hi before it rounds, so the result is the division's. x hi alone would
@@ -163,8 +231,11 @@ VSRD_HD float scaled(const Scaler& inv, float x) { return inv(x); }
 // tangent seeds tl (instance frame). W: the instance's 1617 weights, or
 // nullptr for the box-only phase. K = 0 is the value forward alone (the
 // sphere tracer's), with tl and td unread. inv: the encoding's 1 / scale,
-// a float or a Scaler.
-template <int K, class Inv>
+// a float or a Scaler. BF16: the default precision (W rounded, see above;
+// the encoding enc_dim_jax), which K2's recompute of the JAX body
+// _group_dir_fwd_res runs; the sphere tracer stays strict, as the JAX
+// package's photometric field does.
+template <int K, bool BF16 = false, class Inv>
 VSRD_HD float instance_forward(const float x[3], const float* loc, const float* rot,
                                const float* half, const float* W, const Inv& inv,
                                const float (*tl)[3], float* td) {
@@ -190,20 +261,28 @@ VSRD_HD float instance_forward(const float x[3], const float* loc, const float* 
     for (int j = 0; j < K; ++j) th[j][o] = 0.f;
   }
   for (int dim = 0; dim < 3; ++dim) {
+    float e[2 * kFreq];
+    if (BF16) enc_dim_jax(sym[dim], e);
     for (int k = 0; k < kFreq; ++k) {
       float cs, sn;
-      enc_pair(sym[dim], k, cs, sn);
+      if (BF16) {
+        cs = e[2 * k];
+        sn = e[2 * k + 1];
+      } else {
+        enc_pair(sym[dim], k, cs, sn);
+      }
       const float f = frequency(k);
       float txc[KS], txs[KS];
       for (int j = 0; j < K; ++j) {
         const float tf = f * tsym[j][dim];
-        txc[j] = -sn * tf;
-        txs[j] = cs * tf;
+        txc[j] = operand<BF16>(-sn * tf);
+        txs[j] = operand<BF16>(cs * tf);
       }
       const int c = dim * 2 * kFreq + 2 * k;
+      const float ocs = operand<BF16>(cs), osn = operand<BF16>(sn);
       for (int o = 0; o < kHid; ++o) {
         const float wc = W[o * (kEnc + 1) + c], ws = W[o * (kEnc + 1) + c + 1];
-        h[o] += wc * cs + ws * sn;
+        h[o] += wc * ocs + ws * osn;
         for (int j = 0; j < K; ++j) th[j][o] += wc * txc[j] + ws * txs[j];
       }
     }
@@ -217,9 +296,9 @@ VSRD_HD float instance_forward(const float x[3], const float* loc, const float* 
     float a[kHid], ta[KS][kHid];
     for (int i = 0; i < kHid; ++i) {
       const Gelu g(y[i]);
-      a[i] = y[i] * g.cdf;
+      a[i] = operand<BF16>(y[i] * g.cdf);
       const float g1 = g.cdf + y[i] * g.pdf;
-      for (int j = 0; j < K; ++j) ta[j][i] = g1 * ty[j][i];
+      for (int j = 0; j < K; ++j) ta[j][i] = operand<BF16>(g1 * ty[j][i]);
     }
     const float* Wl = W + layer_offset(l);
     const int out = l < 4 ? kHid : 1;
@@ -494,10 +573,14 @@ VSRD_HD int misc_index(int e) {
 
 // One instance's distance d and grad_x d (world frame) at the point x with
 // the residual field: the value forward, then the reverse sweep seeded with
-// 1. misc: the instance's kRevMisc block. The layer products of layers 0-3
-// go through prod, which holds their accumulator C (16 rows) and reads
-// their operand B from 16 staging rows; prod.at(r) is this point's entry
-// of row r:
+// seed_of(d) (1 in the strict mode, where the union weighs the gradients
+// afterwards; the union's cotangent w (1 + (u - d) / tau) in the default
+// mode, as the JAX body _scene_eval_stacked_rev seeds it, since a bf16
+// operand does not scale with its seed). With reverse false, the value
+// forward alone (g unwritten). misc: the instance's kRevMisc block. The
+// layer products of layers 0-3 go through prod, which holds their
+// accumulator C (16 rows) and reads their operand B from 16 staging rows;
+// prod.at(r) is this point's entry of row r:
 //   begin(bias)   C = the bias rows, or 0 for nullptr
 //   forward(l, m) C += W_l B; for l = 0, W_0's 16 columns of coordinate m
 //   reverse(l)    C += W_l^T B, l = 1..3
@@ -511,10 +594,10 @@ VSRD_HD int misc_index(int e) {
 #if defined(__CUDACC__)
 #pragma nv_exec_check_disable
 #endif
-template <class Prod>
+template <bool BF16, class Prod, class Seed>
 VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
                            const float* half, const float* misc, float inv_scale, Prod& prod,
-                           RevStore res, float g[3]) {
+                           RevStore res, const Seed& seed_of, float g[3], bool reverse = true) {
   const BoxGrad box(x, loc, rot, half);
   const float sym[3] = {fabsf(box.l[0]) * inv_scale, box.l[1] * inv_scale, box.l[2] * inv_scale};
 
@@ -523,7 +606,10 @@ VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
   prod.begin(misc);
   VSRD_UNROLL
   for (int m = 0; m < 3; ++m) {
-    enc_dim<2>(sym[m], e);
+    if (BF16)
+      enc_dim_jax(sym[m], e);
+    else
+      enc_dim<2>(sym[m], e);
     for (int j = 0; j < 2 * kFreq; ++j) prod.at(j) = e[j];
     prod.sync();
     prod.forward(0, m);
@@ -556,13 +642,16 @@ VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
       istd4 = ln_gelu(h, y4, a, cdf4);
     }
   }
-  for (int i = 0; i < kHid; ++i) raw += misc[4 * kHid + i] * a[i];
+  for (int i = 0; i < kHid; ++i) raw += misc[4 * kHid + i] * operand<BF16>(a[i]);
   const float sig = sigmoidf(raw - 1.f);
+  if (!reverse) return box.d + sig;
   const float dsig = sig * (1.f - sig);
+  const float seed = seed_of(box.d + sig);
 
   // reverse, layers 4..1: first-order LayerNorm + GELU per point, then W^T
   float abar[kHid], hbar[kHid];
-  for (int i = 0; i < kHid; ++i) abar[i] = misc[4 * kHid + i] * dsig;
+  const float xo = operand<BF16>(seed * dsig);
+  for (int i = 0; i < kHid; ++i) abar[i] = misc[4 * kHid + i] * xo;
   ln_gelu_rev(y4, istd4, cdf4, abar, hbar);
   VSRD_UNROLL
   for (int l = 3; l >= 1; --l) {
@@ -588,7 +677,7 @@ VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
   for (int i = 0; i < kHid; ++i) prod.at(i) = hbar[i];
   prod.sync();
   prod.hold();
-  float gl[3] = {box.gl[0], box.gl[1], box.gl[2]};
+  float gl[3] = {seed * box.gl[0], seed * box.gl[1], seed * box.gl[2]};
   VSRD_UNROLL
   for (int m = 0; m < 3; ++m) {
     prod.begin(nullptr);
@@ -598,7 +687,10 @@ VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
     prod.sync();
     float ebar[2 * kFreq];
     for (int j = 0; j < 2 * kFreq; ++j) ebar[j] = prod.at(j);
-    enc_dim<4>(sym[m], e);
+    if (BF16)
+      enc_dim_jax(sym[m], e);
+    else
+      enc_dim<4>(sym[m], e);
     gl[m] += enc_rev(e, ebar) * (m == 0 ? box.s[0] : 1.f) * inv_scale;
   }
   local_to_world(rot, gl, g);
@@ -659,10 +751,14 @@ VSRD_HD void ln_gelu_dir(const float h[kHid], const float th[kHid], float a[kHid
 
 // One instance's distance d and its derivative td along the world direction
 // v at the point x with the residual field. misc: the instance's kRevMisc
-// block (instance_rev's). The layer products of layers 0-3 go through prod,
-// which holds their accumulator C (16 rows, a value and a tangent block) and
-// reads their operand B from 16 staging rows of both blocks; prod.at(r) and
-// prod.tan_at(r) are this point's value and tangent entries of row r:
+// block (instance_rev's). inv: the encoding's 1 / scale, a Scaler in the
+// strict mode, the rounded reciprocal (a float, as the JAX body) in the
+// default mode BF16, which also encodes by enc_dim_jax and rounds layer
+// 4's operands (the product object rounds the others). The layer products
+// of layers 0-3 go through prod, which holds their accumulator C (16 rows, a
+// value and a tangent block) and reads their operand B from 16 staging rows
+// of both blocks; prod.at(r) and prod.tan_at(r) are this point's value and
+// tangent entries of row r:
 //   begin(bias)   the value block of C = the bias rows, the tangent block 0
 //   forward(l, m) C += W_l B; for l = 0, W_0's 16 columns of coordinate m
 //   store()       the staging rows = C
@@ -673,15 +769,17 @@ VSRD_HD void ln_gelu_dir(const float h[kHid], const float th[kHid], float a[kHid
 #if defined(__CUDACC__)
 #pragma nv_exec_check_disable
 #endif
-template <class Prod>
+template <bool BF16, class Prod, class Inv>
 VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
                            const float* rot, const float* half, const float* misc,
-                           const Scaler& inv, Prod& prod, float& td) {
+                           const Inv& inv, Prod& prod, float& td) {
   const BoxGrad box(x, loc, rot, half);
   float tl[3];
   const float d = box_dir(box, v, rot, tl, td);
-  const float sym[3] = {inv(fabsf(box.l[0])), inv(box.l[1]), inv(box.l[2])};
-  const float tsym[3] = {inv(box.s[0] * tl[0]), inv(tl[1]), inv(tl[2])};
+  const float sym[3] = {scaled(inv, fabsf(box.l[0])), scaled(inv, box.l[1]),
+                        scaled(inv, box.l[2])};
+  const float tsym[3] = {scaled(inv, box.s[0] * tl[0]), scaled(inv, tl[1]),
+                         scaled(inv, tl[2])};
 
   // layer 0, one coordinate's 16 encoding channels (two k-steps) at a time;
   // the tangent of (cos, sin)(pi 2^k s) is pi 2^k ds (-sin, cos): no new
@@ -690,7 +788,10 @@ VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
   prod.begin(misc);
   VSRD_UNROLL
   for (int m = 0; m < 3; ++m) {
-    enc_dim<2>(sym[m], e);
+    if (BF16)
+      enc_dim_jax(sym[m], e);
+    else
+      enc_dim<2>(sym[m], e);
     for (int k = 0; k < kFreq; ++k) {
       const float f = frequency(k) * tsym[m];
       prod.at(2 * k) = e[2 * k];
@@ -728,8 +829,8 @@ VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
       prod.sync();
     } else {
       for (int i = 0; i < kHid; ++i) {
-        raw += misc[4 * kHid + i] * a[i];
-        traw += misc[4 * kHid + i] * ta[i];
+        raw += misc[4 * kHid + i] * operand<BF16>(a[i]);
+        traw += misc[4 * kHid + i] * operand<BF16>(ta[i]);
       }
     }
   }
@@ -851,7 +952,11 @@ struct Padded {
 // CUDA sink relies on for its block-wide barriers. W is laid out as
 // Padded; the LayerNorm residuals go to ``store``. The layer loops are
 // unrolled on the card so that every per-layer width is a constant there.
-template <class Sink>
+// BF16: the default precision of the JAX body _group_dir_bwd (W rounded,
+// see above): the recomputed forward rounds as instance_forward<1, true>,
+// the input cotangents W^T hbar round hbar and thbar, and the sink rounds
+// its operands (hbar, thbar, a, ta) for the weight-gradient sums.
+template <bool BF16, class Sink>
 VSRD_HD void instance_backward(const float x[3], const float v[3], const float* loc,
                                const float* rot, const float* half, const float* W,
                                float inv_scale, float dbar, float tdbar, float geo[kGeo],
@@ -872,15 +977,30 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
       th[0][o] = 0.f;
     }
     for (int dim = 0; dim < 3; ++dim) {
+      float e[2 * kFreq];
+      if (BF16) enc_dim_jax(sym[dim], e);
       for (int k = 0; k < kFreq; ++k) {
         float cs, sn;
-        enc_pair(sym[dim], k, cs, sn);
         const float tf = frequency(k) * tsym[dim];
         const int c = dim * 2 * kFreq + 2 * k;
-        for (int o = 0; o < kHid; ++o) {
-          const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
-          h[o] += wc * cs + ws * sn;
-          th[0][o] += (ws * cs - wc * sn) * tf;
+        if (BF16) {
+          // the JAX body's tangent rows (-sin tf, cos tf), each an operand
+          cs = e[2 * k];
+          sn = e[2 * k + 1];
+          const float ocs = bf16_round(cs), osn = bf16_round(sn);
+          const float tc = bf16_round(-sn * tf), ts = bf16_round(cs * tf);
+          for (int o = 0; o < kHid; ++o) {
+            const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
+            h[o] += wc * ocs + ws * osn;
+            th[0][o] += wc * tc + ws * ts;
+          }
+        } else {
+          enc_pair(sym[dim], k, cs, sn);
+          for (int o = 0; o < kHid; ++o) {
+            const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
+            h[o] += wc * cs + ws * sn;
+            th[0][o] += (ws * cs - wc * sn) * tf;
+          }
         }
       }
     }
@@ -900,8 +1020,8 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
       float a[kHid], ta[kHid];
       for (int i = 0; i < kHid; ++i) {
         const Gelu g(y[i]);
-        a[i] = y[i] * g.cdf;
-        ta[i] = (g.cdf + y[i] * g.pdf) * ty[0][i];
+        a[i] = operand<BF16>(y[i] * g.cdf);
+        ta[i] = operand<BF16>((g.cdf + y[i] * g.pdf) * ty[0][i]);
       }
       const float* Wl = W + Padded::offset(l);
       const int out = l < 4 ? kHid : 1;
@@ -952,9 +1072,10 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
       float abar[kHid], tabar[kHid];
       for (int i = 0; i < kHid; ++i) abar[i] = tabar[i] = 0.f;
       for (int o = 0; o < out; ++o) {
+        const float hb = operand<BF16>(hbar[o]), thb = operand<BF16>(thbar[o]);
         for (int i = 0; i < kHid; ++i) {
-          abar[i] += Wl[o * Padded::row(l) + i] * hbar[o];
-          tabar[i] += Wl[o * Padded::row(l) + i] * thbar[o];
+          abar[i] += Wl[o * Padded::row(l) + i] * hb;
+          tabar[i] += Wl[o * Padded::row(l) + i] * thb;
         }
       }
       float ybar[kHid], tybar[kHid];
@@ -990,9 +1111,16 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
     // layer 0 and the encoding
     float x0[kEnc], tx0[kEnc];
     for (int dim = 0; dim < 3; ++dim) {
+      float e[2 * kFreq];
+      if (BF16) enc_dim_jax(sym[dim], e);
       for (int k = 0; k < kFreq; ++k) {
         float cs, sn;
-        enc_pair(sym[dim], k, cs, sn);
+        if (BF16) {
+          cs = e[2 * k];
+          sn = e[2 * k + 1];
+        } else {
+          enc_pair(sym[dim], k, cs, sn);
+        }
         const float tf = frequency(k) * tsym[dim];
         const int c = dim * 2 * kFreq + 2 * k;
         x0[c] = cs;
@@ -1003,16 +1131,21 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
     }
     sink.layer(0, kEnc, kHid, x0, tx0, hbar, thbar);
     float symbar[3] = {0.f, 0.f, 0.f}, tsymbar[3] = {0.f, 0.f, 0.f};
+    float hb[kHid], thb[kHid];
+    for (int o = 0; o < kHid; ++o) {
+      hb[o] = operand<BF16>(hbar[o]);
+      thb[o] = operand<BF16>(thbar[o]);
+    }
     for (int dim = 0; dim < 3; ++dim) {
       for (int k = 0; k < kFreq; ++k) {
         const int c = dim * 2 * kFreq + 2 * k;
         float xc = 0.f, xs = 0.f, txc = 0.f, txs = 0.f;
         for (int o = 0; o < kHid; ++o) {
           const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
-          xc += wc * hbar[o];
-          xs += ws * hbar[o];
-          txc += wc * thbar[o];
-          txs += ws * thbar[o];
+          xc += wc * hb[o];
+          xs += ws * hb[o];
+          txc += wc * thb[o];
+          txs += ws * thb[o];
         }
         const float f = frequency(k), cs = x0[c], sn = x0[c + 1];
         const float tf = f * tsym[dim];

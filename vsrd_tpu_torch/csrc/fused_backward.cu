@@ -44,6 +44,11 @@
 //      order into out [F, N, row].
 // No atomics: every sum runs in a fixed order, so the result is bit for
 // bit repeatable, and a frame's CTAs read only that frame's inputs.
+// The default precision (BF16, the JAX body at Precision.DEFAULT): stage 1
+// and stage 2's recompute round every product operand to bf16 (the weights
+// once, where they are staged), the input cotangents W^T hbar round hbar,
+// and the weight-gradient sums are one bf16 mma of the rounded operands
+// (MmaSink<true>); reduce_partials_kernel sums in f32 either way.
 // Inactive instances (instance_active) write zero rows.
 //
 // Per-tile instance-group skipping (the TPU body's two passes with a mask,
@@ -99,6 +104,7 @@
 #include <cuda_runtime.h>
 
 #include "field_common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace vsrd {
@@ -149,6 +155,10 @@ __device__ __forceinline__ int padded_index(int e) {
 // 1-4, tile w % 2 over half w / 2. The halves are added in the epilogue.
 // The bias column (a = 1, ta = 0) is the sum of hbar over the primal half:
 // warp 0 adds it up in f32 from its A fragments, into shared memory.
+// BF16: the default precision, ONE bf16 product per tile and k-step of the
+// rounded operands (mma_bf16.cuh), the bias column the sum of the rounded
+// hbar: the JAX body's dmats = obar stacked^T at Precision.DEFAULT.
+template <bool BF16>
 struct MmaSink {
   float* region;  // shared: the staging
   float* bias;    // shared: [kBias] bias-column sums
@@ -185,40 +195,83 @@ struct MmaSink {
     const float* a0 = hb + (row0 ? gid : 0) * kStageStride + t;
     const float* a1 = hb + (row1 ? gid + 8 : 0) * kStageStride + t;
     float bsum0 = 0.f, bsum1 = 0.f;  // rows gid and gid + 8 of the bias column
-    // A's fragment at k0, split; every lane loads a valid row and selects
-    auto load_a = [&](int k0, unsigned ab[4], unsigned as[4], bool add_bias) {
-      const float x0 = a0[k0], x1 = a1[k0], x2 = a0[k0 + 4], x3 = a1[k0 + 4];
-      const float av[4] = {row0 ? x0 : 0.f, row1 ? x1 : 0.f, row0 ? x2 : 0.f, row1 ? x3 : 0.f};
-      if (add_bias) {
-        bsum0 += av[0] + av[2];
-        bsum1 += av[1] + av[3];
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(av[q], ab[q], as[q]);
-    };
-    if constexpr (L == 0) {
-      const float* bfull = st + (warp * 8 + gid) * kStageStride + t;
-      const float* bhalf = st + ((4 + (warp & 1)) * 8 + gid) * kStageStride + t;
+    if constexpr (BF16) {
+      // A's fragment at k0: rows gid and gid + 8 at k0 + 2t and k0 + 2t + 1, rounded
+      auto load = [&](int k0, unsigned a[2], bool add_bias) {
+        const float x0 = row0 ? bf16_round(a0[k0 + t]) : 0.f;
+        const float x1 = row0 ? bf16_round(a0[k0 + t + 1]) : 0.f;
+        const float x2 = row1 ? bf16_round(a1[k0 + t]) : 0.f;
+        const float x3 = row1 ? bf16_round(a1[k0 + t + 1]) : 0.f;
+        if (add_bias) {
+          bsum0 += x0 + x1;
+          bsum1 += x2 + x3;
+        }
+        a[0] = pack_bf16x2(x0, x1);
+        a[1] = pack_bf16x2(x2, x3);
+      };
+      // B's fragment at k0 from the staged row b (at column 2t)
+      auto bword = [&](const float* b, int k0) { return pack_bf16x2(b[k0], b[k0 + 1]); };
+      if constexpr (L == 0) {
+        const float* bfull = st + (warp * 8 + gid) * kStageStride + 2 * t;
+        const float* bhalf = st + ((4 + (warp & 1)) * 8 + gid) * kStageStride + 2 * t;
 #pragma unroll 2
-      for (int s = 0; s < steps; ++s) {
-        unsigned ab[4], as[4];
-        load_a(own + 8 * s, ab, as, true);
-        mma3(acc[0], ab, as, bfull, own + 8 * s);
-        mma3(acc[1], ab, as, bhalf, own + 8 * s);
-      }
+        for (int s = 0; s < steps; ++s) {
+          unsigned a[2];
+          load(own + 8 * s, a, true);
+          mma_bf16(acc[0], a, bword(bfull, own + 8 * s));
+          mma_bf16(acc[1], a, bword(bhalf, own + 8 * s));
+        }
 #pragma unroll 2
-      for (int s = 0; s < steps; ++s) {
-        unsigned ab[4], as[4];
-        load_a(other + 8 * s, ab, as, false);
-        mma3(acc[0], ab, as, bfull, other + 8 * s);
+        for (int s = 0; s < steps; ++s) {
+          unsigned a[2];
+          load(other + 8 * s, a, false);
+          mma_bf16(acc[0], a, bword(bfull, other + 8 * s));
+        }
+      } else {
+        const float* b = st + ((warp & 1) * 8 + gid) * kStageStride + 2 * t;
+#pragma unroll 2
+        for (int s = 0; s < steps; ++s) {
+          unsigned a[2];
+          load(own + 8 * s, a, true);
+          mma_bf16(acc[L + 1], a, bword(b, own + 8 * s));
+        }
       }
     } else {
-      const float* b = st + ((warp & 1) * 8 + gid) * kStageStride + t;
+      // A's fragment at k0, split; every lane loads a valid row and selects
+      auto load_a = [&](int k0, unsigned ab[4], unsigned as[4], bool add_bias) {
+        const float x0 = a0[k0], x1 = a1[k0], x2 = a0[k0 + 4], x3 = a1[k0 + 4];
+        const float av[4] = {row0 ? x0 : 0.f, row1 ? x1 : 0.f, row0 ? x2 : 0.f, row1 ? x3 : 0.f};
+        if (add_bias) {
+          bsum0 += av[0] + av[2];
+          bsum1 += av[1] + av[3];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(av[q], ab[q], as[q]);
+      };
+      if constexpr (L == 0) {
+        const float* bfull = st + (warp * 8 + gid) * kStageStride + t;
+        const float* bhalf = st + ((4 + (warp & 1)) * 8 + gid) * kStageStride + t;
 #pragma unroll 2
-      for (int s = 0; s < steps; ++s) {
-        unsigned ab[4], as[4];
-        load_a(own + 8 * s, ab, as, true);
-        mma3(acc[L + 1], ab, as, b, own + 8 * s);
+        for (int s = 0; s < steps; ++s) {
+          unsigned ab[4], as[4];
+          load_a(own + 8 * s, ab, as, true);
+          mma3(acc[0], ab, as, bfull, own + 8 * s);
+          mma3(acc[1], ab, as, bhalf, own + 8 * s);
+        }
+#pragma unroll 2
+        for (int s = 0; s < steps; ++s) {
+          unsigned ab[4], as[4];
+          load_a(other + 8 * s, ab, as, false);
+          mma3(acc[0], ab, as, bfull, other + 8 * s);
+        }
+      } else {
+        const float* b = st + ((warp & 1) * 8 + gid) * kStageStride + t;
+#pragma unroll 2
+        for (int s = 0; s < steps; ++s) {
+          unsigned ab[4], as[4];
+          load_a(own + 8 * s, ab, as, true);
+          mma3(acc[L + 1], ab, as, b, own + 8 * s);
+        }
       }
     }
     // warp 0's own half is the primal one: its quads' sums are the bias column's
@@ -285,7 +338,8 @@ struct MmaSink {
 };
 
 // Stage 1: d_bar and td_bar of every instance at every point, [F, N, P].
-template <bool RDF>
+// BF16: the default precision (the weights rounded as they are staged).
+template <bool RDF, bool BF16>
 __global__ void __launch_bounds__(kUnionThreads)
 union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float* __restrict__ dg,
                        const float* __restrict__ du, const float* __restrict__ dw,
@@ -330,7 +384,7 @@ union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float*
       // the group's weights, unless every point of the block drops it
       if (__syncthreads_or(keep)) {
         for (int e = tid; e < gn * kWeights; e += blockDim.x)
-          wts[e] = weights[(size_t)g0 * kWeights + e];
+          wts[e] = operand<BF16>(weights[(size_t)g0 * kWeights + e]);
         __syncthreads();
       }
     }
@@ -347,9 +401,9 @@ union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float*
       float tl[1][3];
       for (int c = 0; c < 3; ++c) tl[0][c] = v[0] * Ri[c] + v[1] * Ri[3 + c] + v[2] * Ri[6 + c];
       float td[1];
-      const float d = instance_forward<1>(x, loc + 3 * i, Ri, half + 3 * i,
-                                          RDF ? wts + (i - g0) * kWeights : nullptr, inv_scale,
-                                          tl, td);
+      const float d = instance_forward<1, BF16>(x, loc + 3 * i, Ri, half + 3 * i,
+                                                RDF ? wts + (i - g0) * kWeights : nullptr,
+                                                inv_scale, tl, td);
       if (live) {
         dbar[(size_t)i * P + p] = d;
         tdbar[(size_t)i * P + p] = td[0];
@@ -360,8 +414,9 @@ union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float*
   union_backward(N, active, dbar + p, tdbar + p, valid, tau, du[p], dw + (size_t)p * N, P);
 }
 
-// Stage 2: one instance of one frame per CTA, grid (tiles, N, F).
-template <bool RDF>
+// Stage 2: one instance of one frame per CTA, grid (tiles, N, F). BF16: the
+// default precision (the weights rounded once staged).
+template <bool RDF, bool BF16>
 __global__ void __launch_bounds__(kChunk, 2)
 instance_backward_kernel(int P, int N, const float* __restrict__ pos,
                          const float* __restrict__ dg, const float* __restrict__ loc,
@@ -421,10 +476,15 @@ instance_backward_kernel(int P, int N, const float* __restrict__ pos,
   if (tid < 9) cp_async4(box + 3 + tid, rot + fi * 9 + tid);
   asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
   __syncthreads();
+  if constexpr (RDF && BF16) {
+    for (int e = tid; e < kWeights; e += kChunk)
+      wts[padded_index(e)] = bf16_round(wts[padded_index(e)]);
+    __syncthreads();
+  }
 
   float geo[kGeo];
   for (int k = 0; k < kGeo; ++k) geo[k] = 0.f;
-  MmaSink sink(region, bias, tid);
+  MmaSink<BF16> sink(region, bias, tid);
   for (int c = 0; c < kChunksPerCta; ++c) {
     const int chunk = tile * kChunksPerCta + c;
     if (chunk >= num_chunks) break;     // uniform over the CTA
@@ -436,8 +496,8 @@ instance_backward_kernel(int P, int N, const float* __restrict__ pos,
     const float v[3] = {dg[3 * pp], dg[3 * pp + 1], dg[3 * pp + 2]};
     // a point past the end carries zero cotangents, so it adds exact zeros
     const float db = live ? dbar[p] : 0.f, tdb = live ? tdbar[p] : 0.f;
-    instance_backward(x, v, box, box + 3, box + 12, RDF ? wts : nullptr, inv_scale, db, tdb, geo,
-                      sink, ColumnStore{region + tid, kChunk});
+    instance_backward<BF16>(x, v, box, box + 3, box + 12, RDF ? wts : nullptr, inv_scale, db, tdb,
+                            geo, sink, ColumnStore{region + tid, kChunk});
     if constexpr (RDF) __syncthreads();  // the next residuals overwrite layer 0's staging
   }
 
@@ -475,7 +535,7 @@ inline size_t instance_smem(bool rdf) {
          sizeof(float);
 }
 
-template <bool RDF>
+template <bool RDF, bool BF16>
 cudaError_t launch_backward(int F, int P, int N, const float* pos, const float* dg,
                             const float* du, const float* dw, const float* loc, const float* rot,
                             const float* half, const float* valid, const float* weights,
@@ -485,26 +545,26 @@ cudaError_t launch_backward(int F, int P, int N, const float* pos, const float* 
   const size_t smem1 = union_smem(N, RDF), smem2 = instance_smem(RDF);
   // both stages take the largest shared-memory carveout, so that the SMs
   // need no reconfiguration between them
-  cudaError_t err = cudaFuncSetAttribute(union_cotangent_kernel<RDF>,
+  cudaError_t err = cudaFuncSetAttribute(union_cotangent_kernel<RDF, BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(instance_backward_kernel<RDF>,
+    err = cudaFuncSetAttribute(instance_backward_kernel<RDF, BF16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(union_cotangent_kernel<RDF>,
+    err = cudaFuncSetAttribute(union_cotangent_kernel<RDF, BF16>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(instance_backward_kernel<RDF>,
+    err = cudaFuncSetAttribute(instance_backward_kernel<RDF, BF16>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid1((P + kUnionThreads - 1) / kUnionThreads, F);
-  union_cotangent_kernel<RDF><<<grid1, kUnionThreads, smem1, s>>>(
+  union_cotangent_kernel<RDF, BF16><<<grid1, kUnionThreads, smem1, s>>>(
       P, N, pos, dg, du, dw, loc, rot, half, valid, weights, tau, inv_scale, mask, mask_tile,
       dbar, tdbar);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  instance_backward_kernel<RDF><<<dim3(tiles, N, F), kChunk, smem2, s>>>(
+  instance_backward_kernel<RDF, BF16><<<dim3(tiles, N, F), kChunk, smem2, s>>>(
       P, N, pos, dg, loc, rot, half, valid, weights, inv_scale, mask, mask_tile, dbar, tdbar,
       partial);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -527,8 +587,10 @@ extern "C" int vsrd_fused_backward_tiles(int P) {
 // [dW 1617 | dloc 3 | drot 9 | dhalf 3] (rdf) or [dloc 3 | drot 9 | dhalf 3].
 // None of them needs zeroing. mask: nullptr, or the skip mode's keep mask
 // [F][ceil(N / 8)][ceil(P / mask_tile)] of the forward, mask_tile a multiple
-// of kChunk.
-extern "C" int vsrd_fused_backward(int F, int P, int N, int rdf, const float* pos, const float* dg,
+// of kChunk. bf16: the default precision (box-only launches have no
+// products, so it does not change them).
+extern "C" int vsrd_fused_backward(int F, int P, int N, int rdf, int bf16, const float* pos,
+                                   const float* dg,
                                    const float* du, const float* dw, const float* loc,
                                    const float* rot, const float* half, const float* valid,
                                    const float* weights, const float* tau, float scale,
@@ -540,11 +602,14 @@ extern "C" int vsrd_fused_backward(int F, int P, int N, int rdf, const float* po
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      rdf ? vsrd::launch_backward<true>(F, P, N, pos, dg, du, dw, loc, rot, half, valid, weights,
-                                        tau, 1.f / scale, mask, mask_tile, tiles, dbar, tdbar,
-                                        partial, out, s)
-          : vsrd::launch_backward<false>(F, P, N, pos, dg, du, dw, loc, rot, half, valid, nullptr,
-                                         tau, 1.f / scale, mask, mask_tile, tiles, dbar, tdbar,
-                                         partial, out, s);
+      !rdf ? vsrd::launch_backward<false, false>(F, P, N, pos, dg, du, dw, loc, rot, half, valid,
+                                                 nullptr, tau, 1.f / scale, mask, mask_tile,
+                                                 tiles, dbar, tdbar, partial, out, s)
+      : bf16 ? vsrd::launch_backward<true, true>(F, P, N, pos, dg, du, dw, loc, rot, half, valid,
+                                                 weights, tau, 1.f / scale, mask, mask_tile,
+                                                 tiles, dbar, tdbar, partial, out, s)
+             : vsrd::launch_backward<true, false>(F, P, N, pos, dg, du, dw, loc, rot, half, valid,
+                                                  weights, tau, 1.f / scale, mask, mask_tile,
+                                                  tiles, dbar, tdbar, partial, out, s);
   return (int)err;
 }

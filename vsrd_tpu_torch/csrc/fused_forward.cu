@@ -9,14 +9,19 @@
 //
 // The form is the JAX kernel's with rev_grad (pallas_rev_grad; body
 // fused_field._scene_eval_stacked_rev): grad_x d_i comes from the value
-// forward and ONE reverse sweep seeded with 1, with respect to the position
-// only (field_common.cuh: instance_rev, the sweep the host tests drive with
+// forward and ONE reverse sweep, with respect to the position only
+// (field_common.cuh: instance_rev, the sweep the host tests drive with
 // scalar products). The JAX body gathers every distance first and seeds the
-// reverse with the union's weights; here each instance's sweep is seeded
-// with 1 and the union weighs the gradients online, which gives the same
-// sum. The JAX package's other form, three forward tangents, exists for its
-// strict mode, since the MXU's default precision is not f32; the 3xTF32
-// products here hold f32 accuracy, so it has no counterpart.
+// reverse with the union's cotangents w_i (1 + (u - d_i) / tau). In the
+// strict mode (3xTF32, f32-accurate) each instance's sweep is seeded with 1
+// and the union weighs the gradients online, which gives the same sum. In
+// the default precision (BF16: bf16 operands, f32 sums, the MXU's
+// Precision.DEFAULT) a rounded operand does not scale with its seed, so the
+// kernel runs the JAX body's order: a first pass of value forwards gives
+// the union, a second runs each instance's forward again and its sweep
+// seeded with its cotangent, and sums the gradients. The JAX package's
+// other form, three forward tangents (its strict and skip modes), is not
+// ported: this form serves both modes.
 //
 // What bounds it on an H100. Per point and active instance the residual
 // field needs 3,104 multiply-adds of layer products (1,552 for the value,
@@ -26,8 +31,8 @@
 // point. With the products on the tensor cores in 3xTF32 (2 FLOP a
 // multiply-add at 495 / 3 TFLOP/s) and the rest at 67 TFLOP/s f32, the
 // products set the bound (0.038 against 0.028 ns per point-instance;
-// chip_smoke.py::kernel_bound); bytes are far below either. Box-only it is
-// bound by its bytes.
+// chip_smoke.py::kernel_bound); in bf16 (989 TFLOP/s) the per-point work
+// does. Bytes are far below either. Box-only it is bound by its bytes.
 //
 // The design (grid (point tiles of T, F) with T = 384 threads a CTA while
 // their shared memory fits, N <= 10, else 128; one point per thread, one
@@ -41,7 +46,8 @@
 //     blocks of 256 words), so a warp loads a fragment with two 16-byte
 //     loads and no conversion;
 //   * layer products on the tensor cores: mma.sync.m16n8k8 TF32 in 3xTF32
-//     (mma_tf32.cuh), C [16 x 32] = A [16 x K] B [K x 32] per warp over its
+//     (mma_tf32.cuh), or one bf16 mma in the default precision
+//     (mma_bf16.cuh), C [16 x 32] = A [16 x K] B [K x 32] per warp over its
 //     own points (4 n-tiles): the value forward W_l a for layers 0-3 and the
 //     reverse W_l^T hbar for layers 3..0 (layer 0's W^T in three m-tiles,
 //     one per coordinate). Layer 4 (one output) stays on the CUDA cores.
@@ -122,12 +128,15 @@ struct RevLayout {
 // points (4 n-tiles of 8), A from the instance's fragment blocks, B from
 // the warp's staging rows (row k at act + k * kRowStride). Every lane
 // calls every method, so the warp stays converged around each mma.
+// BF16: the default precision, one bf16 mma per product (warp_product.cuh);
+// the bias rows (misc) are rounded where they are staged.
+template <bool BF16>
 struct WarpProduct {
   const unsigned* frag;
   float* act;
   int lane;
   float c[4][4];
-  unsigned bb[2][4][2], bs[2][4][2];  // layer 0's B (hbar), split once
+  unsigned bb[2][4][2], bs[2][4][2];  // layer 0's B (hbar), split once (BF16: bb[.][.][0])
 
   __device__ __forceinline__ WarpProduct(const unsigned* f, float* a, int l)
       : frag(f), act(a), lane(l) {}
@@ -135,14 +144,23 @@ struct WarpProduct {
   __device__ __forceinline__ void sync() { __syncwarp(); }
   __device__ __forceinline__ void begin(const float* bias) { init_acc<4>(c, bias, lane); }
   __device__ __forceinline__ void forward(int l, int m) {
-    warp_product<2, 4, kRowStride>(frag, l == 0 ? fwd_block(0, 2 * m) : fwd_block(l, 0), act,
-                                   lane, c);
+    warp_product<2, 4, kRowStride, BF16>(frag, l == 0 ? fwd_block(0, 2 * m) : fwd_block(l, 0),
+                                         act, lane, c);
   }
   __device__ __forceinline__ void reverse(int l) {
-    warp_product<2, 4, kRowStride>(frag, rev_block(l, 0, 0), act, lane, c);
+    warp_product<2, 4, kRowStride, BF16>(frag, rev_block(l, 0, 0), act, lane, c);
   }
   __device__ __forceinline__ void hold() {
     const int gid = lane >> 2, t = lane & 3;
+    if constexpr (BF16) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          bb[s][nt][0] = pack_bf16x2(act[(s * 8 + 2 * t) * kRowStride + nt * 8 + gid],
+                                     act[(s * 8 + 2 * t + 1) * kRowStride + nt * 8 + gid]);
+      return;
+    }
 #pragma unroll
     for (int s = 0; s < 2; ++s)
 #pragma unroll
@@ -153,6 +171,16 @@ struct WarpProduct {
                             bs[s][nt][h]);
   }
   __device__ __forceinline__ void reverse0(int m) {
+    if constexpr (BF16) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint2 w = *reinterpret_cast<const uint2*>(frag + rev_block(0, s, m) * 256 + lane * 2);
+        const unsigned a[2] = {w.x, w.y};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(c[nt], a, bb[s][nt][0]);
+      }
+      return;
+    }
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int b = rev_block(0, s, m);
@@ -168,7 +196,11 @@ struct WarpProduct {
 };
 
 // Grid (ceil(P / T), F), T threads a CTA; see the note at the top of the file.
-template <bool RDF, int T>
+// BF16 (with the residual field): the default precision, in two passes over
+// the instances: the value forward of each (the union's u and weights),
+// then each one's value forward again and its reverse sweep seeded with its
+// cotangent w (1 + (u - d) / tau), the gradients summed as they come.
+template <bool RDF, bool BF16, int T>
 __global__ void __launch_bounds__(T, 384 / T)
 rev_forward_kernel(int P, int N, const float* __restrict__ pos, const float* __restrict__ loc,
                    const float* __restrict__ rot, const float* __restrict__ half,
@@ -177,6 +209,8 @@ rev_forward_kernel(int P, int N, const float* __restrict__ pos, const float* __r
                    const int* __restrict__ mask, int mask_tile, float* __restrict__ u,
                    float* __restrict__ w, float* __restrict__ grad) {
   using L = RevLayout<T>;
+  constexpr bool kTwoPass = RDF && BF16;
+  constexpr int kPasses = kTwoPass ? 2 : 1;
   extern __shared__ __align__(16) float smem[];
   const size_t f = blockIdx.y;
   pos += f * P * 3;
@@ -209,14 +243,17 @@ rev_forward_kernel(int P, int N, const float* __restrict__ pos, const float* __r
 
   bool any_valid = false;
   for (int i = 0; i < N; ++i) any_valid |= valid[i] > 0.5f;
-  // the instances whose field this CTA evaluates: active, in a kept group
-  auto computed = [&](int i) {
+  // the instances whose field this CTA evaluates: active, in a kept group;
+  // step s runs instance s % N in pass s / N
+  const int steps = kPasses * N;
+  auto computed = [&](int s) {
+    const int i = s % N;
     return instance_active(valid[i], any_valid) && group_kept(cta_keep, i);
   };
-  auto next_computed = [&](int i) {
-    for (++i; i < N && !computed(i); ++i) {
+  auto next_computed = [&](int s) {
+    for (++s; s < steps && !computed(s); ++s) {
     }
-    return i;
+    return s;
   };
   auto prefetch = [&](int i) {
     const float* src = weights + (size_t)i * kWeights;
@@ -226,26 +263,40 @@ rev_forward_kernel(int P, int N, const float* __restrict__ pos, const float* __r
 
   if constexpr (RDF) {
     const int first = next_computed(-1);
-    if (first < N) prefetch(first);
+    if (first < steps) prefetch(first % N);
   }
   OnlineUnion<3> acc;
-  for (int i = 0; i < N; ++i) {
+  float gsum[3] = {0.f, 0.f, 0.f};  // the default mode's gradient, weighed by its seeds
+  for (int s = 0; s < steps; ++s) {
+    const int i = s % N;
+    const bool second = s >= N;
     if (!instance_active(valid[i], any_valid)) continue;  // uniform over the CTA
     float g[3] = {0.f, 0.f, 0.f}, d = kSkipDistance;
     if (group_kept(cta_keep, i)) {  // uniform over the CTA
       if constexpr (RDF) {
-        const int next = next_computed(i);
+        const int next = next_computed(s);
         asm volatile("cp.async.wait_group 0;" ::: "memory");
         __syncthreads();  // raw holds instance i; every warp is done with the last one's fragments
 #pragma unroll
         for (int j = 0; j < kFragBlocks / L::kWarps; ++j)
-          convert_block(raw, frag, warp + L::kWarps * j, lane);
-        for (int e = tid; e < kRevMisc; e += T) misc[e] = raw[misc_index(e)];
+          convert_block<BF16>(raw, frag, warp + L::kWarps * j, lane);
+        for (int e = tid; e < kRevMisc; e += T) misc[e] = operand<BF16>(raw[misc_index(e)]);
         __syncthreads();  // fragments ready, raw free
-        if (next < N) prefetch(next);
-        WarpProduct prod(frag, stage, lane);
-        d = instance_rev(x, loc + 3 * i, rot + 9 * i, half + 3 * i, misc, inv_scale, prod, res,
-                         g);
+        if (next < steps) prefetch(next % N);
+        WarpProduct<BF16> prod(frag, stage, lane);
+        if constexpr (kTwoPass) {
+          // pass 2's seed: the union's cotangent of d, from pass 1's sums
+          const float vi = valid[i];
+          auto seed = [&](float di) {
+            const float ui = acc.sd / acc.z;
+            return expf(union_logit(di, vi, tau) - acc.mx) / acc.z * (1.f + (ui - di) / tau);
+          };
+          d = instance_rev<true>(x, loc + 3 * i, rot + 9 * i, half + 3 * i, misc, inv_scale, prod,
+                                 res, seed, g, second);
+        } else {
+          d = instance_rev<false>(x, loc + 3 * i, rot + 9 * i, half + 3 * i, misc, inv_scale,
+                                  prod, res, [](float) { return 1.f; }, g);
+        }
       } else {
         const BoxGrad box(x, loc + 3 * i, rot + 9 * i, half + 3 * i);
         local_to_world(rot + 9 * i, box.gl, g);
@@ -256,6 +307,11 @@ rev_forward_kernel(int P, int N, const float* __restrict__ pos, const float* __r
       d = kSkipDistance;
       g[0] = g[1] = g[2] = 0.f;
     }
+    if (kTwoPass && second) {
+      for (int j = 0; j < 3; ++j) gsum[j] += g[j];
+      continue;
+    }
+    if (kTwoPass) g[0] = g[1] = g[2] = 0.f;  // pass 1: values only
     const float l = union_logit(d, valid[i], tau);
     logits[tid * lrow + i] = l;
     acc.add(l, d, g);
@@ -264,7 +320,7 @@ rev_forward_kernel(int P, int N, const float* __restrict__ pos, const float* __r
   if (live) {
     float du[3];
     u[p] = acc.finish(tau, du);
-    for (int j = 0; j < 3; ++j) grad[(size_t)p * 3 + j] = du[j];
+    for (int j = 0; j < 3; ++j) grad[(size_t)p * 3 + j] = kTwoPass ? gsum[j] : du[j];
   }
   for (int i = 0; i < N; ++i)
     logits[tid * lrow + i] =
@@ -283,28 +339,28 @@ inline int rev_threads(bool rdf, int N) {
   return rdf && RevLayout<384>::bytes(true, N) <= kMaxSmem ? 384 : 128;
 }
 
-template <bool RDF, int T>
+template <bool RDF, bool BF16, int T>
 cudaError_t rev_attributes(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(rev_forward_kernel<RDF, T>,
+  cudaError_t err = cudaFuncSetAttribute(rev_forward_kernel<RDF, BF16, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(rev_forward_kernel<RDF, T>,
+    err = cudaFuncSetAttribute(rev_forward_kernel<RDF, BF16, T>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   return err;
 }
 
-template <bool RDF, int T>
+template <bool RDF, bool BF16, int T>
 cudaError_t launch_rev_forward(int F, int P, int N, const float* pos, const float* loc,
                                const float* rot, const float* half, const float* valid,
                                const float* weights, const float* tau, float scale,
                                const int* mask, int mask_tile, float* u, float* w, float* grad,
                                cudaStream_t stream) {
   const size_t smem = RevLayout<T>::bytes(RDF, N);
-  const cudaError_t err = rev_attributes<RDF, T>(smem);
+  const cudaError_t err = rev_attributes<RDF, BF16, T>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((P + T - 1) / T, F);
-  rev_forward_kernel<RDF, T><<<grid, T, smem, stream>>>(
+  rev_forward_kernel<RDF, BF16, T><<<grid, T, smem, stream>>>(
       P, N, pos, loc, rot, half, valid, weights, tau, 1.f / scale, mask, mask_tile, u, w, grad);
   return cudaGetLastError();
 }
@@ -312,7 +368,8 @@ cudaError_t launch_rev_forward(int F, int P, int N, const float* pos, const floa
 }  // namespace vsrd
 
 // The reverse form's CTA size, dynamic shared memory (bytes) and CTAs per
-// SM, for N instances, with the residual field (rdf) or box-only.
+// SM, for N instances, with the residual field (rdf) or box-only; the
+// strict kernel's (the default precision's has the same layout).
 extern "C" int vsrd_rev_forward_info(int N, int rdf, int* threads, int* smem_bytes,
                                      int* ctas_per_sm) {
   using namespace vsrd;
@@ -320,23 +377,27 @@ extern "C" int vsrd_rev_forward_info(int N, int rdf, int* threads, int* smem_byt
   cudaError_t err;
   if (*threads == 384) {
     *smem_bytes = (int)RevLayout<384>::bytes(true, N);
-    err = rev_attributes<true, 384>(*smem_bytes);
+    err = rev_attributes<true, false, 384>(*smem_bytes);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          ctas_per_sm, rev_forward_kernel<true, 384>, 384, *smem_bytes);
+          ctas_per_sm, rev_forward_kernel<true, false, 384>, 384, *smem_bytes);
   } else {
     *smem_bytes = (int)RevLayout<128>::bytes(rdf, N);
-    err = rdf ? rev_attributes<true, 128>(*smem_bytes) : rev_attributes<false, 128>(*smem_bytes);
+    err = rdf ? rev_attributes<true, false, 128>(*smem_bytes)
+              : rev_attributes<false, false, 128>(*smem_bytes);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          ctas_per_sm, rdf ? rev_forward_kernel<true, 128> : rev_forward_kernel<false, 128>, 128,
+          ctas_per_sm,
+          rdf ? rev_forward_kernel<true, false, 128> : rev_forward_kernel<false, false, 128>, 128,
           *smem_bytes);
   }
   return (int)err;
 }
 
-// mask: nullptr, or the skip mode's keep mask [F][ceil(N / 8)][ceil(P / mask_tile)]
-extern "C" int vsrd_fused_forward(int F, int P, int N, int rdf, const float* pos,
+// mask: nullptr, or the skip mode's keep mask [F][ceil(N / 8)][ceil(P / mask_tile)];
+// bf16: the default precision (box-only launches have no products, so it
+// does not change them)
+extern "C" int vsrd_fused_forward(int F, int P, int N, int rdf, int bf16, const float* pos,
                                   const float* loc, const float* rot, const float* half,
                                   const float* valid, const float* weights, const float* tau,
                                   float scale, const int* mask, int mask_tile, float* u, float* w,
@@ -344,11 +405,21 @@ extern "C" int vsrd_fused_forward(int F, int P, int N, int rdf, const float* pos
   if (mask != nullptr && mask_tile < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (!rdf)
-    return vsrd::launch_rev_forward<false, 128>(F, P, N, pos, loc, rot, half, valid, nullptr, tau,
-                                                scale, mask, mask_tile, u, w, grad, s);
-  return vsrd::rev_threads(true, N) == 384
-             ? vsrd::launch_rev_forward<true, 384>(F, P, N, pos, loc, rot, half, valid, weights,
-                                                   tau, scale, mask, mask_tile, u, w, grad, s)
-             : vsrd::launch_rev_forward<true, 128>(F, P, N, pos, loc, rot, half, valid, weights,
-                                                   tau, scale, mask, mask_tile, u, w, grad, s);
+    return vsrd::launch_rev_forward<false, false, 128>(F, P, N, pos, loc, rot, half, valid,
+                                                       nullptr, tau, scale, mask, mask_tile, u,
+                                                       w, grad, s);
+  const bool wide = vsrd::rev_threads(true, N) == 384;
+  if (bf16)
+    return wide ? vsrd::launch_rev_forward<true, true, 384>(F, P, N, pos, loc, rot, half, valid,
+                                                            weights, tau, scale, mask, mask_tile,
+                                                            u, w, grad, s)
+                : vsrd::launch_rev_forward<true, true, 128>(F, P, N, pos, loc, rot, half, valid,
+                                                            weights, tau, scale, mask, mask_tile,
+                                                            u, w, grad, s);
+  return wide ? vsrd::launch_rev_forward<true, false, 384>(F, P, N, pos, loc, rot, half, valid,
+                                                           weights, tau, scale, mask, mask_tile,
+                                                           u, w, grad, s)
+              : vsrd::launch_rev_forward<true, false, 128>(F, P, N, pos, loc, rot, half, valid,
+                                                           weights, tau, scale, mask, mask_tile,
+                                                           u, w, grad, s);
 }

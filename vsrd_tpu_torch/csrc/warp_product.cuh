@@ -9,11 +9,18 @@
 // shared memory (row k at B + k * STRIDE, with STRIDE = 8 mod 32 so that the
 // B-fragment loads are free of bank conflicts) and split by integer
 // arithmetic (split_tf32_finite).
+//
+// The default precision (BF16; mma_bf16.cuh) is one mma.sync.m16n8k8 in bf16
+// per k-step and n-tile, f32 sums: A's fragment is two words per lane, each
+// a pair of consecutive k rounded to bf16 once per instance (convert_block
+// in its bf16 form, in the same 256-word blocks), and B's one word, a pair
+// of staging rows rounded as it is loaded.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "field_common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace vsrd {
@@ -32,7 +39,9 @@ __host__ __device__ constexpr int rev_block(int l, int s, int m) {
 }
 
 // Block b's fragment of one lane from the raw weights, split into TF32 big
-// and small words.
+// and small words, or (BF16) rounded into its two bf16x2 words at frag + b
+// * 256 + lane * 2.
+template <bool BF16>
 __device__ __forceinline__ void convert_block(const float* raw, unsigned* frag, int b, int lane) {
   int l, s, m = 0;
   bool rev;
@@ -48,6 +57,13 @@ __device__ __forceinline__ void convert_block(const float* raw, unsigned* frag, 
   const int row = (l == 0 ? kEnc : kHid) + 1;
   const float* W = raw + layer_offset(l);
   const int gid = lane >> 2, t = lane & 3;
+  if constexpr (BF16) {
+    auto at = [&](int r, int k) { return rev ? W[k * row + r] : W[r * row + k]; };
+    const int r = m * 16 + gid, k = s * 8 + 2 * t;
+    *reinterpret_cast<uint2*>(frag + b * 256 + lane * 2) = make_uint2(
+        pack_bf16x2(at(r, k), at(r, k + 1)), pack_bf16x2(at(r + 8, k), at(r + 8, k + 1)));
+    return;
+  }
   unsigned big[4], small[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -61,10 +77,22 @@ __device__ __forceinline__ void convert_block(const float* raw, unsigned* frag, 
 
 // c[nt] += A B over NT n-tiles of 8 columns, K = 8 * KSTEPS; A's fragments
 // from blocks block.., B from the staging rows (row k at B + k * STRIDE)
-template <int KSTEPS, int NT, int STRIDE>
+template <int KSTEPS, int NT, int STRIDE, bool BF16 = false>
 __device__ __forceinline__ void warp_product(const unsigned* frag, int block, const float* B,
                                              int lane, float c[NT][4]) {
   const int gid = lane >> 2, t = lane & 3;
+  if constexpr (BF16) {
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s) {
+      const uint2 w = *reinterpret_cast<const uint2*>(frag + (block + s) * 256 + lane * 2);
+      const unsigned a[2] = {w.x, w.y};
+      const float* b = B + (s * 8 + 2 * t) * STRIDE + gid;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mma_bf16(c[nt], a, pack_bf16x2(b[nt * 8], b[nt * 8 + STRIDE]));
+    }
+    return;
+  }
 #pragma unroll
   for (int s = 0; s < KSTEPS; ++s) {
     const uint4 big = *reinterpret_cast<const uint4*>(frag + (block + s) * 256 + lane * 4);

@@ -59,18 +59,24 @@ class OptimizationConfig:
     """Hyperparameters, with the JAX package's fields and defaults.
 
     The ``kernel_*`` knobs are the ``pallas_*`` knobs of the JAX package
-    with the same meaning. JAX fields without a counterpart here:
+    with the same meaning. ``kernel_matmul_precision`` is
+    ``pallas_matmul_precision``: at "default" every layer product of the
+    field kernels (K1-K4c, and their twins on CPU tensors) rounds both
+    operands to bf16 and sums the exact products in f32, as the TPU's MXU
+    at ``Precision.DEFAULT``; at "highest" they are f32 (3xTF32 on the
+    card) and the directional coarse pass is off. JAX fields without a
+    counterpart here:
 
     * ``use_pallas``, ``field_dtype`` and ``remat_fields``: they choose
       and configure the XLA field path. The port has no such path; its
-      field always goes through the kernels in f32 (their plain twins on
-      CPU tensors), as the JAX package's kernel path does.
+      field always goes through the kernels (their plain twins on CPU
+      tensors), as the JAX package's kernel path does.
     * ``pallas_rev_grad``: K1 always computes grad_x u by the JAX
       kernel's default ``rev_grad`` form, one reverse sweep per instance.
-      The JAX package's other form, three forward tangents, serves its
-      strict mode, where the MXU's default precision is not f32; K1's
-      tensor-core products run in 3xTF32, f32-accurate at any
-      ``kernel_matmul_precision``, so the port has one form.
+      The JAX package's other form, three forward tangents (its strict
+      mode, and its skip mode), is not ported: at "highest" the reverse
+      form computes the same function in f32; in the default mode with
+      the skip on its bf16 rounding differs from the three tangents'.
     * ``pallas_tile``, ``pallas_bwd_tile``, ``pallas_box_tile``: the CUDA
       kernels choose their own launch shapes.
     """
@@ -112,8 +118,11 @@ class OptimizationConfig:
     # numerics
     checkpoint_interval: int = 500
     metric_interval: int = 50
-    # 'default': fast mode; 'highest': strict parity mode, which turns the
-    # directional coarse pass off (the kernels compute in f32 either way)
+    # 'default': the field kernels' layer products take bf16 operands
+    # (rounded to nearest even) with f32 sums, as the JAX kernels' MXU
+    # products at Precision.DEFAULT; 'highest': f32 products (3xTF32) and
+    # the strict parity mode, which also turns the directional coarse pass
+    # off. The photometric sphere tracer and render_image stay f32.
     kernel_matmul_precision: str = "default"
     # coarse pass through K3's single directional tangent instead of the
     # full spatial gradient (off in strict mode)
@@ -425,14 +434,15 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         the original instance order."""
         shape = positions.shape[:-1]
         flat = positions.reshape(*lead, -1, 3)
-        skip = ({"group_mask": field_kernels.group_mask_for(flat, loc_f, half_f, valid_f,
-                                                             temperature)}
-                if group_skip else {})
+        mask = (field_kernels.group_mask_for(flat, loc_f, half_f, valid_f, temperature)
+                if group_skip else None)
         u, w, x = kernel(flat, *(e.reshape(*lead, -1, 3) for e in extra), loc_f, rot_f,
-                         half_f, valid_f, weights, temperature, scale, **skip)
+                         half_f, valid_f, weights, temperature, scale, mask, precision)
         if group_skip:
             w = torch.take_along_dim(w, inv_perm[..., None, :].expand(w.shape), dim=-1)
         return u.reshape(shape), w.reshape(*shape, n), x.reshape(*shape, *x.shape[len(lead) + 1:])
+
+    precision = cfg.kernel_matmul_precision
 
     def field_with_grad(positions):
         return field_call(field_kernels.fused_field_with_grad, positions, weights=weights_f)

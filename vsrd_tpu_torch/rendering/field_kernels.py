@@ -6,16 +6,16 @@ Counterpart of ``vsrd_tpu/rendering/pallas_field.py``:
 * K1 ``field_forward``: u [P], w [P, N] and grad_x u [P, 3] of the union
   SDF (``csrc/fused_forward.cu``; TPU ``_fwd_kernel`` with ``rev_grad``),
   grad_x u from one reverse sweep per instance with the layer products on
-  the tensor cores in 3xTF32;
+  the tensor cores;
 * K2 ``field_backward``: the cotangents of K1's inputs from those of its
   outputs (``csrc/fused_backward.cu``; TPU ``_bwd_kernel_manual``). One
   call launches three CUDA kernels: the union's cotangents per point, the
   per-instance reverse sweep with its weight-gradient sums on the tensor
-  cores (3xTF32), and the ordered reduction of the CTAs' partial rows;
+  cores, and the ordered reduction of the CTAs' partial rows;
 * K3 ``field_dir_forward``: u, w and the derivative of u along a
   per-point direction, forward only (``csrc/dir_forward.cu``; TPU
   ``_dir_fwd_kernel``), the value and its tangent as two column blocks of
-  one set of layer products on the tensor cores in 3xTF32;
+  one set of layer products on the tensor cores;
 * ``sphere_trace``: the gradient-stopped march of sphere tracing through
   the hard (or softmin) union of a scene, for F frames of R rays in one
   call (``csrc/sphere_trace.cu``; the JAX package runs it as a
@@ -43,6 +43,20 @@ cotangents there are exactly 0, from the first stage's masked union).
 ``MASK_TILE`` is a multiple of 128, so a chunk lies in one mask tile and a
 warp's 32 points in one tile. ``<launcher>.skip_launches`` counts the
 launches with a mask.
+
+Precision (``precision``, the TPU kernels' ``matmul_precision``): at
+``"default"`` every layer product of K1-K3 (and K4a-c) takes bf16 operands,
+rounded to nearest even, with f32 sums, one ``mma.sync`` bf16 product
+(``csrc/mma_bf16.cuh``), as the TPU's MXU computes an f32 dot at
+``Precision.DEFAULT``: the weights with their biases, the activations, the
+tangents, the backward's cotangents; K1 then seeds each instance's reverse
+sweep with its union cotangent, in a second pass over the instances. At
+``"highest"`` (every launcher's default, as ``FieldStatics.matmul_precision``
+is the JAX package's; the optimizer passes its ``kernel_matmul_precision``)
+the products run in 3xTF32 (f32 accuracy). Box-only launches
+have no products and are the same in both modes. ``<launcher>.bf16_launches``
+counts the launches with bf16 products (the default mode with the residual
+field).
 
 ``fused_field_with_grad`` binds K1 to K2 through ``torch.autograd.Function``
 and ``fused_field_dir_forward`` calls K3. On CPU tensors both take the
@@ -162,9 +176,9 @@ def build_library() -> ctypes.CDLL:
     )
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vsrd_fused_forward.argtypes = [i32] * 4 + [ptr] * 7 + [f32, ptr, i32] + [ptr] * 4
-    lib.vsrd_dir_forward.argtypes = [i32] * 4 + [ptr] * 8 + [f32, ptr, i32] + [ptr] * 4
-    lib.vsrd_fused_backward.argtypes = ([i32] * 4 + [ptr] * 10 + [f32, ptr, i32, i32]
+    lib.vsrd_fused_forward.argtypes = [i32] * 5 + [ptr] * 7 + [f32, ptr, i32] + [ptr] * 4
+    lib.vsrd_dir_forward.argtypes = [i32] * 5 + [ptr] * 8 + [f32, ptr, i32] + [ptr] * 4
+    lib.vsrd_fused_backward.argtypes = ([i32] * 5 + [ptr] * 10 + [f32, ptr, i32, i32]
                                         + [ptr] * 5)
     lib.vsrd_fused_backward_tiles.argtypes = [i32]
     lib.vsrd_rev_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
@@ -259,7 +273,7 @@ def group_mask_for(positions, locations, half_dims, valid, temperature):
                                        MASK_TILE)
 
 
-def _count(launcher, frames: int, rdf: bool, masked: bool = False):
+def _count(launcher, frames: int, rdf: bool, masked: bool = False, bf16: bool = False):
     launcher.launches += 1
     if frames > 1:
         launcher.batched_launches += 1
@@ -267,14 +281,18 @@ def _count(launcher, frames: int, rdf: bool, masked: bool = False):
         launcher.rdf_launches += 1
     if masked:
         launcher.skip_launches += 1
+    if rdf and bf16:
+        launcher.bf16_launches += 1
 
 
 def field_forward(positions, locations, rotations, half_dims, valid, weights,
-                  temperature, position_scale: float = 100.0, group_mask=None):
+                  temperature, position_scale: float = 100.0, group_mask=None,
+                  precision: str = "highest"):
     """Launch K1 (K4a for F > 1 frames): ``(u [(F,) P], w [(F,) P, N],
     grad_x u [(F,) P, 3])``. ``weights`` ``[(F,) N, 1617]`` or ``None``
     (box only); ``valid`` float ``[(F,) N]``; ``group_mask`` the optional
-    keep mask of the skip mode."""
+    keep mask of the skip mode; ``precision`` "default" or "highest"."""
+    bf16 = fused_field.check_precision(precision)
     lead, frames, (pos, loc, rot, half, val), w, tau = _prepare(
         positions, locations, rotations, half_dims, valid, weights, temperature)
     p, n = pos.shape[-2], loc.shape[-2]
@@ -284,20 +302,23 @@ def field_forward(positions, locations, rotations, half_dims, valid, weights,
     wts = torch.empty(*lead, p, n, device=pos.device)
     grad = torch.empty(*lead, p, 3, device=pos.device)
     _check(lib.vsrd_fused_forward(
-        frames, p, n, int(w is not None), _ptr(pos), _ptr(loc), _ptr(rot), _ptr(half),
-        _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(mask), MASK_TILE, _ptr(u),
-        _ptr(wts), _ptr(grad), _stream()), "K1/K4a fused_forward")
-    _count(field_forward, frames, w is not None, mask is not None)
+        frames, p, n, int(w is not None), int(bf16), _ptr(pos), _ptr(loc), _ptr(rot),
+        _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(mask), MASK_TILE,
+        _ptr(u), _ptr(wts), _ptr(grad), _stream()), "K1/K4a fused_forward")
+    _count(field_forward, frames, w is not None, mask is not None, bf16)
     return u, wts, grad
 
 
 def field_backward(positions, locations, rotations, half_dims, valid, weights,
-                   temperature, du, dw, dg, position_scale: float = 100.0, group_mask=None):
+                   temperature, du, dw, dg, position_scale: float = 100.0, group_mask=None,
+                   precision: str = "highest"):
     """Launch K2 (K4c for F > 1 frames): the cotangents ``(dloc [(F,) N,
     3], drot [(F,) N, 3, 3], dhalf [(F,) N, 3], dweights [(F,) N, 1617] or
     None)`` of K1's inputs from those of its outputs ``du [(F,) P]``,
     ``dw [(F,) P, N]``, ``dg [(F,) P, 3]``. Frame f's cotangents come from
-    frame f's points only. ``group_mask``: the keep mask of K1's launch."""
+    frame f's points only. ``group_mask``: the keep mask of K1's launch;
+    ``precision``: K1's."""
+    bf16 = fused_field.check_precision(precision)
     lead, frames, (pos, dg_c, du_c, dw_c, loc, rot, half, val), w, tau = _prepare(
         positions, locations, rotations, half_dims, valid, weights, temperature,
         extra=(dg, du, dw))
@@ -315,20 +336,23 @@ def field_backward(positions, locations, rotations, half_dims, valid, weights,
     partial = torch.empty(frames, n, tiles, row, device=pos.device)
     out = torch.empty(*lead, n, row, device=pos.device)
     _check(lib.vsrd_fused_backward(
-        frames, p, n, rdf, _ptr(pos), _ptr(dg_c), _ptr(du_c), _ptr(dw_c), _ptr(loc),
+        frames, p, n, rdf, int(bf16), _ptr(pos), _ptr(dg_c), _ptr(du_c), _ptr(dw_c), _ptr(loc),
         _ptr(rot), _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale),
         _ptr(mask), MASK_TILE, tiles, _ptr(cot[0]), _ptr(cot[1]), _ptr(partial), _ptr(out),
         _stream()), "K2/K4c fused_backward")
-    _count(field_backward, frames, bool(rdf), mask is not None)
+    _count(field_backward, frames, bool(rdf), mask is not None, bf16)
     dweights = out[..., :NUM_WEIGHTS] if rdf else None
     geo = out[..., row - _GEO:]
     return geo[..., 0:3], geo[..., 3:12].reshape(*lead, n, 3, 3), geo[..., 12:15], dweights
 
 
 def field_dir_forward(positions, directions, locations, rotations, half_dims, valid,
-                      weights, temperature, position_scale: float = 100.0, group_mask=None):
+                      weights, temperature, position_scale: float = 100.0, group_mask=None,
+                      precision: str = "highest"):
     """Launch K3 (K4b for F > 1 frames): ``(u [(F,) P], w [(F,) P, N],
-    <dir, grad_x u> [(F,) P])``; ``group_mask`` the optional keep mask."""
+    <dir, grad_x u> [(F,) P])``; ``group_mask`` the optional keep mask;
+    ``precision`` "default" or "highest"."""
+    bf16 = fused_field.check_precision(precision)
     lead, frames, (pos, dirs, loc, rot, half, val), w, tau = _prepare(
         positions, locations, rotations, half_dims, valid, weights, temperature,
         extra=(directions,))
@@ -341,10 +365,10 @@ def field_dir_forward(positions, directions, locations, rotations, half_dims, va
     wts = torch.empty(*lead, p, n, device=pos.device)
     u_dot = torch.empty(*lead, p, device=pos.device)
     _check(lib.vsrd_dir_forward(
-        frames, p, n, int(w is not None), _ptr(pos), _ptr(dirs), _ptr(loc), _ptr(rot),
+        frames, p, n, int(w is not None), int(bf16), _ptr(pos), _ptr(dirs), _ptr(loc), _ptr(rot),
         _ptr(half), _ptr(val), _ptr(w), _ptr(tau), float(position_scale), _ptr(mask),
         MASK_TILE, _ptr(u), _ptr(wts), _ptr(u_dot), _stream()), "K3/K4b dir_forward")
-    _count(field_dir_forward, frames, w is not None, mask is not None)
+    _count(field_dir_forward, frames, w is not None, mask is not None, bf16)
     return u, wts, u_dot
 
 
@@ -421,6 +445,7 @@ def reset_launch_counts():
         fn.batched_launches = 0
         fn.rdf_launches = 0
         fn.skip_launches = 0
+        fn.bf16_launches = 0
     sphere_trace.soft_launches = 0
 
 
@@ -433,14 +458,15 @@ class _FusedFieldWithGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, positions, locations, rotations, half_dims, valid, weights,
-                temperature, position_scale, group_mask):
+                temperature, position_scale, group_mask, precision):
         u, w, g = field_forward(positions, locations, rotations, half_dims, valid,
-                                weights, temperature, position_scale, group_mask)
+                                weights, temperature, position_scale, group_mask, precision)
         # K2 reads the same mask as K1
         ctx.save_for_backward(positions, locations, rotations, half_dims, valid, weights,
                               torch.as_tensor(temperature, device=positions.device),
                               group_mask)
         ctx.position_scale = position_scale
+        ctx.precision = precision
         return u, w, g
 
     @staticmethod
@@ -454,17 +480,18 @@ class _FusedFieldWithGrad(torch.autograd.Function):
         dg = zeros(*lead, 3) if dg is None else dg
         dloc, drot, dhalf, dweights = field_backward(
             positions, locations, rotations, half_dims, valid, weights, temperature,
-            du, dw, dg, ctx.position_scale, group_mask)
-        return None, dloc, drot, dhalf, None, dweights, None, None, None
+            du, dw, dg, ctx.position_scale, group_mask, ctx.precision)
+        return None, dloc, drot, dhalf, None, dweights, None, None, None, None
 
 
 def fused_field_with_grad(positions, locations, rotations, half_dims, valid, weights,
-                          temperature, position_scale: float = 100.0, group_mask=None):
+                          temperature, position_scale: float = 100.0, group_mask=None,
+                          precision: str = "highest"):
     """(u [(F,) P], w [(F,) P, N], grad_x u [(F,) P, 3]) of the scene field,
     differentiable with respect to locations, rotations, half_dims and
     weights; an optional leading frame axis on positions and parameters,
-    and an optional keep mask ``group_mask`` at ``MASK_TILE`` (one mask for
-    the forward and its backward).
+    an optional keep mask ``group_mask`` at ``MASK_TILE`` (one mask for
+    the forward and its backward) and the products' ``precision``.
 
     CUDA tensors go through K1 (K4a) and, for the backward, K2 (K4c); CPU
     tensors through the plain twins ``fused_field.scene_eval_with_grad``
@@ -472,28 +499,29 @@ def fused_field_with_grad(positions, locations, rotations, half_dims, valid, wei
     if positions.device.type == "cuda":
         return _FusedFieldWithGrad.apply(positions, locations, rotations, half_dims,
                                          valid, weights, temperature, position_scale,
-                                         group_mask)
+                                         group_mask, precision)
     if positions.device.type == "cpu":
         twin = (fused_field.scene_eval_with_grad_batched if positions.ndim == 3
                 else fused_field.scene_eval_with_grad)
         return twin(positions, locations, rotations, half_dims, valid, weights, temperature,
-                    position_scale, group_mask, MASK_TILE)
+                    position_scale, group_mask, MASK_TILE, precision)
     raise ValueError(f"no field kernel for device {positions.device}")
 
 
 def fused_field_dir_forward(positions, directions, locations, rotations, half_dims, valid,
                             weights, temperature, position_scale: float = 100.0,
-                            group_mask=None):
+                            group_mask=None, precision: str = "highest"):
     """(u [(F,) P], w [(F,) P, N], <dir, grad_x u> [(F,) P]), forward only:
     K3 (K4b) on CUDA tensors, the plain twins ``fused_field.scene_eval_dir``
-    and ``scene_eval_dir_batched`` on CPU ones; ``group_mask`` as in
-    ``fused_field_with_grad``."""
+    and ``scene_eval_dir_batched`` on CPU ones; ``group_mask`` and
+    ``precision`` as in ``fused_field_with_grad``."""
     if positions.device.type == "cuda":
         return field_dir_forward(positions, directions, locations, rotations, half_dims,
-                                 valid, weights, temperature, position_scale, group_mask)
+                                 valid, weights, temperature, position_scale, group_mask,
+                                 precision)
     if positions.device.type == "cpu":
         twin = (fused_field.scene_eval_dir_batched if positions.ndim == 3
                 else fused_field.scene_eval_dir)
         return twin(positions, directions, locations, rotations, half_dims, valid, weights,
-                    temperature, position_scale, group_mask, MASK_TILE)
+                    temperature, position_scale, group_mask, MASK_TILE, precision)
     raise ValueError(f"no field kernel for device {positions.device}")

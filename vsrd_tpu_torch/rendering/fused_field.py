@@ -20,6 +20,22 @@ are the plain versions of kernels K1/K2 and K3
 ``_batched`` forms, a loop over a leading frame axis, are the plain
 versions of the frame-batched launches K4a/K4c and K4b.
 
+Precision (``precision``, the JAX package's ``pallas_matmul_precision``):
+``"highest"`` computes every layer product in f32; ``"default"`` computes
+what the TPU's MXU computes at ``Precision.DEFAULT``: each product's two
+operands rounded to bf16 (to nearest, ties to even; ``bf16_round``), the
+products exact and the sums in the operands' dtype. The bias is a column of
+the product times an exact 1, so it is rounded too, as is the 16 -> 1 last
+layer; the encoding is the JAX package's fast one (``encode`` with
+``fast=True``: exact sin/cos at k = 0 and 4, angle doubling between, and the
+rounded 1 / scale). ``bf16_matmul`` carries the rounding through autograd
+and ``torch.func.jvp``: its backward rounds the incoming cotangent and the
+saved operands (never the result) and is itself differentiable, so the
+twin of K2, which differentiates through K1's gradient, rounds every
+product as the JAX backward does; its forward-mode rule rounds the tangent
+(the JAX kernels stack it beside the value). ``scene.py`` and the sphere
+tracer keep the strict default.
+
 Per-tile instance-group skipping (``group_tile_mask``; the JAX package's
 ``group_skip`` mode, ``fused_field.py:110-200``): instances go in groups of
 8 (``group_size_of``; the last group may be partial, since the port does not
@@ -53,6 +69,56 @@ GROUP_SKIP_MARGIN = 2.0
 GROUP_SKIP_TAU_SCALE = 12.0
 # each instance's residual sigmoid(raw - 1) lies in (0, 1)
 _RESIDUAL_BOUND = 1.0
+PRECISIONS = ("default", "highest")
+
+
+def check_precision(precision: str) -> bool:
+    """Whether ``precision`` is the default (bf16-operand) mode; raises on
+    anything but "default" and "highest"."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision is one of {PRECISIONS}, not {precision!r}")
+    return precision == "default"
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bf16 value (ties to even), in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _BF16Matmul(torch.autograd.Function):
+    """``bf16_round(a) @ bf16_round(b)``, summed in the operands' dtype."""
+
+    @staticmethod
+    def forward(a, b):
+        return bf16_round(a) @ bf16_round(b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        ga = bf16_matmul(grad, b.mT) if ctx.needs_input_grad[0] else None
+        gb = bf16_matmul(a.mT, grad) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+    @staticmethod
+    def jvp(ctx, ta, tb):
+        a, b = ctx.saved_tensors
+        out = None
+        if ta is not None:
+            out = bf16_round(ta) @ bf16_round(b)
+        if tb is not None:
+            extra = bf16_round(a) @ bf16_round(tb)
+            out = extra if out is None else out + extra
+        return out
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A matrix product at the default precision (see the module docstring)."""
+    return _BF16Matmul.apply(a, b)
 
 
 def group_size_of(num_instances: int) -> int:
@@ -155,10 +221,27 @@ def split_field_layers(weights: torch.Tensor,
     return tuple(layers)
 
 
-def encode(local: torch.Tensor, position_scale: float, num_frequencies: int):
+def encode(local: torch.Tensor, position_scale: float, num_frequencies: int,
+           fast: bool = False):
     """Sinusoidal encoding of the x-mirrored local point ``[..., 3]`` ->
-    ``[..., 6 * num_frequencies]`` in (k, cos/sin, dim) order."""
+    ``[..., 6 * num_frequencies]`` in (k, cos/sin, dim) order.
+
+    ``fast``: the JAX package's fast encoding (``_encoding_trig``), the one
+    its default precision uses: the coordinates times the rounded 1 /
+    scale, exact cos and sin at every k % 4 == 0, the others by the
+    double-angle recurrence c' = 2 c c - 1, s' = 2 s c."""
     sym = torch.cat([torch.abs(local[..., :1]), local[..., 1:]], dim=-1)
+    if fast:
+        sym = sym * (1.0 / position_scale)
+        pairs = []
+        for k in range(num_frequencies):
+            if k % 4 == 0:
+                phase = sym * (math.pi * 2.0 ** k)
+                c, s = torch.cos(phase), torch.sin(phase)
+            else:
+                c, s = 2.0 * c * c - 1.0, 2.0 * s * c
+            pairs.append(torch.stack([c, s], dim=-2))                   # [..., 2, dim]
+        return torch.stack(pairs, dim=-3).flatten(-3)
     sym = sym / position_scale
     # fl(pi) 2^k is fl(pi 2^k): the phases are the per-frequency products
     frequencies = torch.exp2(torch.arange(num_frequencies, dtype=sym.dtype,
@@ -168,21 +251,28 @@ def encode(local: torch.Tensor, position_scale: float, num_frequencies: int):
 
 
 def instance_distances(positions, locations, rotations, half_dims, layers,
-                       position_scale: float = 100.0, num_frequencies: int = 8):
+                       position_scale: float = 100.0, num_frequencies: int = 8,
+                       precision: str = "highest"):
     """Per-instance signed distances ``[(F,) P, N]`` at points ``[(F,) P,
     3]``, with ``[(F,) N, ...]`` parameters for a leading frame axis.
 
     ``layers`` is the ``split_field_layers`` tuple, or ``None`` for the
-    box-only warmup phase."""
+    box-only warmup phase. ``precision``: see the module docstring."""
+    bf16 = check_precision(precision)
     local = sdf_ops.into_instance_frame(positions, locations, rotations)  # [P, N, 3]
     distances = sdf_ops.box_sdf(local, half_dims[..., None, :, :])        # [P, N]
     if layers is None:
         return distances
-    x = encode(local, position_scale, num_frequencies)                     # [P, N, 48]
+    x = encode(local, position_scale, num_frequencies, fast=bf16)          # [P, N, 48]
     for index, w_full in enumerate(layers):
         if index:
             x = F.gelu(layer_norm(x))
-        if x.ndim == 3:
+        if bf16:
+            # [.., P, N, C + 1] with the bias input 1, as [.., N, P, C + 1]
+            # products with [.., N, C + 1, out]
+            x_h = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+            x = bf16_matmul(x_h.transpose(-2, -3), w_full.mT).transpose(-2, -3)
+        elif x.ndim == 3:
             x = torch.einsum("pnc,noc->pno", x, w_full[..., :-1]) + w_full[..., -1]
         else:
             x = (torch.einsum("fpnc,fnoc->fpno", x, w_full[..., :-1])
@@ -192,7 +282,8 @@ def instance_distances(positions, locations, rotations, half_dims, layers,
 
 def scene_eval(positions, locations, rotations, half_dims, valid, layers,
                temperature, position_scale: float = 100.0,
-               num_frequencies: int = 8, group_mask=None, mask_tile: int | None = None):
+               num_frequencies: int = 8, group_mask=None, mask_tile: int | None = None,
+               precision: str = "highest"):
     """(union sdf [P], softmin weights [P, N]) at points ``[P, 3]``.
 
     ``valid [N]`` is float (1.0 real / 0.0 padded). With ``group_mask [G,
@@ -200,7 +291,7 @@ def scene_eval(positions, locations, rotations, half_dims, valid, layers,
     ``SKIP_DISTANCE`` at the tile's points."""
     distances = instance_distances(
         positions, locations, rotations, half_dims, layers,
-        position_scale, num_frequencies,
+        position_scale, num_frequencies, precision,
     )
     if group_mask is not None:
         keep = point_keep(group_mask, positions.shape[-2], locations.shape[-2], mask_tile)
@@ -210,7 +301,8 @@ def scene_eval(positions, locations, rotations, half_dims, valid, layers,
 
 def scene_eval_with_grad(positions, locations, rotations, half_dims, valid,
                          weights, temperature, position_scale: float = 100.0,
-                         group_mask=None, mask_tile: int | None = None):
+                         group_mask=None, mask_tile: int | None = None,
+                         precision: str = "highest"):
     """Plain twin of kernels K1 (forward) and K2 (its backward).
 
     Returns ``(u [P], w [P, N], grad_x u [P, 3])`` for flattened field
@@ -223,6 +315,10 @@ def scene_eval_with_grad(positions, locations, rotations, half_dims, valid,
     module docstring). The JAX package computes the skip mode's gradient by
     three forward tangents (``rev_grad`` is off there with a mask); the
     port keeps its one reverse-sweep form, the same function.
+
+    ``precision``: see the module docstring. At "default" the gradient's
+    reverse sweep rounds the union's cotangents where they enter each
+    product, as the JAX kernel's sweep seeded with them does.
     """
     layers = None if weights is None else split_field_layers(weights)
     keep_graph = torch.is_grad_enabled()
@@ -230,7 +326,7 @@ def scene_eval_with_grad(positions, locations, rotations, half_dims, valid,
         pos = positions.detach().requires_grad_(True)
         u, w = scene_eval(pos, locations, rotations, half_dims, valid, layers,
                           temperature, position_scale, group_mask=group_mask,
-                          mask_tile=mask_tile)
+                          mask_tile=mask_tile, precision=precision)
         (g,) = torch.autograd.grad(u.sum(), pos, create_graph=keep_graph)
     if not keep_graph:
         u, w = u.detach(), w.detach()
@@ -239,11 +335,14 @@ def scene_eval_with_grad(positions, locations, rotations, half_dims, valid,
 
 def scene_eval_dir(positions, directions, locations, rotations, half_dims,
                    valid, weights, temperature, position_scale: float = 100.0,
-                   group_mask=None, mask_tile: int | None = None):
+                   group_mask=None, mask_tile: int | None = None,
+                   precision: str = "highest"):
     """Plain twin of kernel K3: ``(u [P], w [P, N], <dir, grad_x u> [P])``
     by one forward-mode tangent along ``directions [P, 3]``. Forward only:
     every output is detached from the parameters. ``group_mask``: the skip
-    mode, as in ``scene_eval_with_grad``."""
+    mode, as in ``scene_eval_with_grad``; ``precision``: see the module
+    docstring (at "default" the tangent is rounded where it enters each
+    product)."""
     layers = None if weights is None else tuple(
         m.detach() for m in split_field_layers(weights)
     )
@@ -252,7 +351,8 @@ def scene_eval_dir(positions, directions, locations, rotations, half_dims,
             position_scale)
 
     def field(p):
-        return scene_eval(p, *args, group_mask=group_mask, mask_tile=mask_tile)
+        return scene_eval(p, *args, group_mask=group_mask, mask_tile=mask_tile,
+                          precision=precision)
 
     with torch.no_grad():
         (u, w), (u_dot, _) = torch.func.jvp(
@@ -263,7 +363,8 @@ def scene_eval_dir(positions, directions, locations, rotations, half_dims,
 
 def scene_eval_with_grad_batched(positions, locations, rotations, half_dims, valid,
                                  weights, temperature, position_scale: float = 100.0,
-                                 group_mask=None, mask_tile: int | None = None):
+                                 group_mask=None, mask_tile: int | None = None,
+                                 precision: str = "highest"):
     """Plain twin of kernels K4a (forward) and K4c (its backward):
     ``scene_eval_with_grad`` per frame of positions ``[F, P, 3]`` with
     ``[F, N, ...]`` parameters (``weights [F, N, 1617]`` or ``None``), one
@@ -273,7 +374,8 @@ def scene_eval_with_grad_batched(positions, locations, rotations, half_dims, val
         scene_eval_with_grad(positions[f], locations[f], rotations[f], half_dims[f],
                              valid[f], None if weights is None else weights[f],
                              temperature, position_scale,
-                             None if group_mask is None else group_mask[f], mask_tile)
+                             None if group_mask is None else group_mask[f], mask_tile,
+                             precision)
         for f in range(positions.shape[0])
     ]
     return tuple(torch.stack(parts) for parts in zip(*outs))
@@ -281,7 +383,8 @@ def scene_eval_with_grad_batched(positions, locations, rotations, half_dims, val
 
 def scene_eval_dir_batched(positions, directions, locations, rotations, half_dims,
                            valid, weights, temperature, position_scale: float = 100.0,
-                           group_mask=None, mask_tile: int | None = None):
+                           group_mask=None, mask_tile: int | None = None,
+                           precision: str = "highest"):
     """Plain twin of kernel K4b: ``scene_eval_dir`` per frame of
     ``[F, P, 3]`` positions and directions (and ``[F, G, T]`` masks),
     stacked."""
@@ -289,7 +392,7 @@ def scene_eval_dir_batched(positions, directions, locations, rotations, half_dim
         scene_eval_dir(positions[f], directions[f], locations[f], rotations[f],
                        half_dims[f], valid[f], None if weights is None else weights[f],
                        temperature, position_scale,
-                       None if group_mask is None else group_mask[f], mask_tile)
+                       None if group_mask is None else group_mask[f], mask_tile, precision)
         for f in range(positions.shape[0])
     ]
     return tuple(torch.stack(parts) for parts in zip(*outs))

@@ -159,6 +159,18 @@ Phases (any failure exits non-zero):
    ``configs/kitti_360``, back to the start JSON; the seven augmentations,
    built from their ``vsrd.transforms.<Name>`` configs, on one 376x1408 frame
    (finite images in [0, 1] of the expected shapes; host seconds each).
+17. scripts (its own ``[time]`` line): the work per point-instance
+   (``vsrd_tpu_torch/scripts/roofline.py``'s count from the twins) beside
+   the kernel source's FLOP_F32 and FLOP_F32_BOX; every kernel entry of
+   phase 3 against its bound (kernel_bound: the binding unit among the
+   tensor cores and HBM on this run's inputs; the f32 and special-function
+   bounds printed beside), failing the run where a kernel reads above
+   ROOFLINE_SLACK of its bound (the count would then be wrong); then the
+   measuring entry points in process at cut sizes: steptime (--chunk 10 at
+   F=1 and F=2), kernelbench, roofline, photobench (--chunk 10) and profile
+   (--steps 5; again at F=2 with --photometric --residual-coarse), the
+   scenes at 4 views, each report read back from its ``--out`` JSON and
+   checked.
 
 The second-to-last line is a JSON object with one entry per kernel and
 mode of the paths, its ``precision`` named: its launches in its path (the
@@ -203,7 +215,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 TOLERANCE = 2e-4          # max |kernel - twin| / max(max|twin|, 1)
 REPEATS = 20
@@ -212,28 +223,17 @@ PLAIN_REPEATS = 5
 FRAMES = 8                # the batched path's frames (seeds 0-7)
 BATCH_VALID = (6, 0, 8, 6, 8, 6, 8, 6)   # valid instances per frame, kernel phase
 PALLAS = "vsrd_tpu/rendering/pallas_field.py"
-# the H100's published peaks (SXM, dense; NVIDIA's data sheet): HBM bytes/s,
-# f32 FLOP/s outside the tensor cores, TF32 and BF16 tensor-core FLOP/s
-PEAK_BYTES, PEAK_F32, PEAK_TF32, PEAK_BF16 = 3.35e12, 67e12, 495e12, 989e12
-# 3xTF32 runs three TF32 products for each f32 multiply-add: 2 FLOP at a
-# third of the TF32 rate
-RATE_3XTF32 = PEAK_TF32 / 3
-# The least work of each function per point and active instance, whatever
-# implements it, counted from csrc/field_common.cuh. MAC_TENSOR: the
-# residual MLP's layer products (48-16-16-16-16-1, 1,552 multiply-adds for a
-# value), which the tensor cores can run in 3xTF32: K1, the value and one
-# reverse sweep with respect to the position (three forward tangents would
-# do the same function with twice the products); K3, the value and one
-# tangent; K2, the value with one tangent (3,104), the reverse of both
-# (3,104) and the weight-gradient sums (3,169). FLOP_F32: the rest, at the
-# f32 peak (an FMA is 2 FLOP, a transcendental 1; rounded down): K1, box
-# SDF and its gradient 58, encoding 76 (24 sincos), 4 x LayerNorm + GELU
-# 660, sigmoid 22, their first-order reverses 904, the encoding's reverse
-# 126, the rotation back 18, the union 24; K3, the same forward with one
-# tangent; K2, that forward, the union's reverse and the second-order
-# reverse sweep. Box-only: the box SDF with its gradient or tangent and the
-# union (those kernels are bound by bytes).
-MAC_TENSOR = {"K1": 3104, "K2": 9377, "K3": 3104}
+# phase 17: a kernel faster than this share of its roofline bound fails
+ROOFLINE_SLACK = 1.05
+# The f32 work per point and active instance, counted from
+# csrc/field_common.cuh (the implementation; an FMA is 2 FLOP, a
+# transcendental 1; rounded down): K1, box SDF and its gradient 58, encoding
+# 76 (24 sincos), 4 x LayerNorm + GELU 660, sigmoid 22, their first-order
+# reverses 904, the encoding's reverse 126, the rotation back 18, the union
+# 24; K3, the same forward with one tangent; K2, that forward, the union's
+# reverse and the second-order reverse sweep. Box-only: the box SDF with its
+# gradient or tangent and the union. Phase 17 prints them beside the twins'
+# counts (vsrd_tpu_torch/scripts/roofline.py); no bound uses them.
 FLOP_F32 = {"K1": 1888, "K2": 4770, "K3": 1816}
 FLOP_F32_BOX = {"K1": 100, "K2": 280, "K3": 92}
 
@@ -243,25 +243,13 @@ def fail(message: str):
     raise SystemExit(1)
 
 
-def card_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def synthetic_frames(seeds, device: str, **kwargs):
-    """Full-width synthetic frames (17 views at 376x1408, 8 instances) of
-    ``seeds``, built on host threads: the frame build is numpy, which
-    releases the interpreter lock in its array work."""
-    from vsrd_tpu_torch.pipeline import frame as fm
-
-    kwargs = dict(dict(num_views=17, image_size=(376, 1408), num_instances=8,
-                       max_instances=8), **kwargs)
-    workers = max(1, min(len(seeds), os.cpu_count() or 1))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(lambda s: fm.synthetic_frame(s, device=device, **kwargs), seeds))
+try:
+    from vsrd_tpu_torch.scripts.bench_common import (card_name_and_power, event_ms,
+                                                     field_inputs, synthetic_frames)
+    from vsrd_tpu_torch.scripts.roofline import PEAK_BYTES, PEAK_F32
+except ImportError as exc:
+    fail(f"the port is not importable from here ({exc}); run from the repo root with "
+         f"PyTorch installed")
 
 
 def err(a, b) -> float:
@@ -269,54 +257,33 @@ def err(a, b) -> float:
     return float((a - b).abs().max()) / max(scale, 1.0)
 
 
-def event_ms(fn, repeats: int = REPEATS) -> float:
-    """Mean ms per call on CUDA events over ``repeats`` back-to-back calls,
-    after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / repeats
-
-
-def kernel_bound(kind: str, rdf: bool, x: dict, pairs: int | None = None,
-                 precision: str = "highest") -> tuple[float, str]:
-    """The least time (ms) the card could take for one call of kernel
-    ``kind`` (K1, K2 or K3 and their frame-batched launches) on the inputs
-    ``x``, and whether bytes or operations set it: each input read once and
-    each output written once at the HBM rate, against this run's active
-    point-instances (valid ones, or all N in a frame with none valid; with
-    a group-skip mask, ``pairs``: those a kept group holds) with the layer
-    products at the 3xTF32 rate (``precision`` "highest") or the dense
-    BF16 rate ("default") and the rest at the f32 rate, the two
-    overlapped."""
+def active_pairs(x: dict) -> int:
+    """The point-instance pairs a call on inputs ``x`` evaluates: the valid
+    instances of each frame (all N in a frame with none valid) times its
+    points."""
     valid = x["valid"].reshape(-1, x["valid"].shape[-1])
     n = valid.shape[-1]
     active = sum(int(c) if c > 0 else n for c in (valid > 0.5).sum(-1).tolist())
-    frames, p = valid.shape[0], x["pos"].shape[-2]
-    pairs = active * p if pairs is None else pairs
-    weights = frames * n * 1617 * 4 if rdf else 0
-    if kind == "K1":         # pos in; u, w, grad_x u out
-        nbytes = frames * p * (12 + 4 + 4 * n + 12) + weights
-    elif kind == "K2":       # pos, dg, du, dw in; one row per instance out
-        nbytes = frames * p * (12 + 12 + 4 + 4 * n) + weights
-        nbytes += frames * n * 4 * (1632 if rdf else 15)
-    else:                    # pos, dirs in; u, w, u_dot out
-        nbytes = frames * p * (12 + 12 + 4 + 4 * n + 4) + weights
-    times = {
-        "bytes": nbytes / PEAK_BYTES,
-        "operations": max(pairs * (FLOP_F32[kind] if rdf else FLOP_F32_BOX[kind]) / PEAK_F32,
-                          pairs * 2 * MAC_TENSOR[kind] * rdf
-                          / (RATE_3XTF32 if precision == "highest" else PEAK_BF16)),
-    }
-    bound_by = max(times, key=times.get)
-    return times[bound_by] * 1e3, bound_by
+    return active * x["pos"].shape[-2]
+
+
+def kernel_bound(kind: str, rdf: bool, x: dict, pairs: int | None = None,
+                 precision: str = "highest") -> tuple[float, str, dict]:
+    """The least time (ms) the card could take for one call of kernel
+    ``kind`` (K1, K2 or K3 and their frame-batched launches) on the inputs
+    ``x``, whether bytes or operations set it, and every unit's least ms:
+    ``roofline.py``'s bound, the twin's work per point-instance times this
+    run's active point-instances (``active_pairs``; with a group-skip mask,
+    ``pairs``: those a kept group holds), on this card. Its binding unit is
+    the tensor cores ("operations") or HBM ("bytes")."""
+    from vsrd_tpu_torch.scripts import roofline
+
+    frames, n = x["valid"].reshape(-1, x["valid"].shape[-1]).shape
+    pairs = active_pairs(x) if pairs is None else pairs
+    work = roofline.kernel_work(kind, x["pos"].shape[-2], n, rdf, precision, frames, pairs)
+    bounds = roofline.bounds_ms(work, precision, roofline.hopper_model())
+    unit, ms = roofline.binding(bounds)
+    return ms, "bytes" if unit == "hbm" else "operations", bounds
 
 
 def median_ms(fn, repeats: int = REPEATS) -> float:
@@ -331,39 +298,6 @@ def median_ms(fn, repeats: int = REPEATS) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
     return statistics.median(times)
-
-
-def field_inputs(num_points: int, num_instances: int = 8, num_valid: int = 6, seed: int = 0,
-                 device: str = "cuda"):
-    """Field inputs shaped like the main path's: points along rays from a
-    camera at the origin over 0-100 m, boxes 5-40 m ahead, field weights
-    from a random hypernetwork-sized layer."""
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(seed)
-    n = num_instances
-    dirs = rng.normal(size=(num_points, 3)) * [0.3, 0.1, 1.0]
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    pos = dirs * rng.uniform(0.0, 100.0, size=(num_points, 1))
-    loc = np.stack([rng.uniform(-6, 6, n), rng.uniform(0.3, 0.8, n), rng.uniform(5, 40, n)], -1)
-    yaw = rng.uniform(-0.4, 0.4, n)
-    rot = np.stack([
-        [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]] for a in yaw
-    ])
-    half = rng.uniform([0.75, 0.75, 1.5], [1.0, 1.0, 2.5], size=(n, 3))
-    valid = (np.arange(n) < num_valid).astype(np.float32)
-    weights = rng.normal(size=(n, 1617)) * 0.3
-    cot = dict(
-        du=rng.normal(size=num_points), dw=rng.normal(size=(num_points, n)),
-        dg=rng.normal(size=(num_points, 3)),
-    )
-    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)  # noqa: E731
-    return dict(
-        pos=t(pos), dirs=t(dirs), loc=t(loc), rot=t(rot), half=t(half), valid=t(valid),
-        weights=t(weights), tau=torch.tensor(0.5, device=device),
-        **{k: t(v) for k, v in cot.items()},
-    )
 
 
 def batched_field_inputs(num_points: int, seed: int):
@@ -2748,6 +2682,94 @@ def library_phase(card: str) -> dict:
     return report
 
 
+# ---- phase 17: the measuring entry points and the roofline ----
+# (module, arguments, keys its --out report must hold): the scenes cut to 4 of
+# their 17 views, since building a 17-view frame takes about 11 s of host time
+SCRIPT_RUNS = (
+    ("steptime", ["--views", "4", "--chunk", "10", "--repeats", "1"],
+     ("ms_per_step", "per_frame_s")),
+    ("steptime", ["--views", "4", "--chunk", "10", "--repeats", "1", "--frames", "2"],
+     ("ms_per_step", "per_frame_s")),
+    ("kernelbench", [], ("fwd_ms", "fwd_bwd_ms")),
+    ("roofline", [], ("bounds_ms", "measured_ms", "fraction_of_binding_bound")),
+    ("photobench", ["--views", "4", "--chunk", "10", "--repeats", "1"], ("results",)),
+    ("profile", ["--views", "4", "--steps", "5"],
+     ("busy_ms_per_step", "idle_share", "device_ms_per_step_by_category")),
+    ("profile", ["--views", "4", "--steps", "5", "--frames", "2", "--photometric",
+                 "--residual-coarse"],
+     ("busy_ms_per_step", "idle_share", "wall_ms_per_frame_step")),
+)
+
+
+def _finite_numbers(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_finite_numbers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_finite_numbers(v) for v in tree)
+    if isinstance(tree, (int, float)):
+        return math.isfinite(tree)
+    return True
+
+
+def scripts_phase(card: str, report: dict) -> None:
+    """Phase 17: the twins' counts beside the smoke's f32 constants, phase
+    3's kernels against their roofline bounds, then each measuring entry
+    point at a cut size, its report read back and checked."""
+    import importlib
+
+    from vsrd_tpu_torch.scripts import roofline
+
+    start = time.perf_counter()
+    for kind in ("K1", "K2", "K3"):
+        for rdf in (True, False):
+            for precision in ("default", "highest") if rdf else ("highest",):
+                per_pair = roofline.tile_counts(kind, 8, rdf, precision).scaled(
+                    1 / (roofline.TILE * 8))
+                print(f"[roofline] {kind} {'residual' if rdf else 'box-only'} {precision}: per "
+                      f"point-instance at N=8: {per_pair.tensor_macs:.0f} tensor-core "
+                      f"multiply-adds, {per_pair.f32_ops:.1f} f32 operations (the strict "
+                      f"twin's) and {per_pair.transcendentals:.1f} transcendentals (the twin's) "
+                      f"against the kernel source's f32 FLOP_F32{'' if rdf else '_BOX'} "
+                      f"{(FLOP_F32 if rdf else FLOP_F32_BOX)[kind]}", flush=True)
+    too_fast = {}
+    for name, entry in sorted(report.items()):
+        ms, _, bounds = entry["bound"]
+        unit = roofline.binding(bounds)[0]
+        fraction = ms / entry["event_ms"]
+        print(f"[roofline] {name} (F={entry['frames']}): bound {ms:.4f} ms by {unit} ("
+              + ", ".join(f"{u} {b:.4f}" for u, b in bounds.items())
+              + f"), events {entry['event_ms']:.4f} ms: {fraction:.3f} of the bound "
+              f"(f32 {bounds['f32'] / entry['event_ms']:.3f}, special functions "
+              f"{bounds['sfu'] / entry['event_ms']:.3f}) on {card}", flush=True)
+        if not fraction <= ROOFLINE_SLACK:
+            too_fast[name] = fraction
+    if too_fast:
+        fail(f"kernels faster than {ROOFLINE_SLACK} of their roofline bound (a wrong count): "
+             f"{too_fast}")
+    with tempfile.TemporaryDirectory(prefix="vsrd_scripts_") as out_dir:
+        for index, (name, argv, keys) in enumerate(SCRIPT_RUNS):
+            module = importlib.import_module(f"vsrd_tpu_torch.scripts.{name}")
+            path = os.path.join(out_dir, f"{index}_{name}.json")
+            began = time.perf_counter()
+            module.main(argv + ["--out", path])
+            with open(path) as f:
+                out = json.load(f)
+            missing = [k for k in keys if k not in out]
+            if missing or out.get("card") != card or not _finite_numbers(out):
+                fail(f"scripts: {name} {argv}: missing {missing} or non-finite numbers, or "
+                     f"not on {card}: {json.dumps(out)[:400]}")
+            if "--photometric" in argv and not out["device_ms_per_step_by_category"].get(
+                    "sphere trace"):
+                fail(f"scripts: profile {argv} shows no sphere-trace kernel")
+            if name == "roofline":
+                fraction = out["fraction_of_binding_bound"]
+                if not isinstance(fraction, float) or fraction > ROOFLINE_SLACK:
+                    fail(f"scripts: roofline reads K1 at {fraction} of its bound")
+            print(f"[scripts] {name} {' '.join(argv)}: read back, "
+                  f"{time.perf_counter() - began:.1f} s", flush=True)
+    print(f"[time] scripts phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main():
     if sys.argv[1:2] == ["--sharded-child"]:
         sharded_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -2885,6 +2907,7 @@ def main():
     sharded_run = sharded_phase(card)
     library = library_phase(card)
     print(f"[time] sharded and library phase: {time.perf_counter() - start:.1f} s", flush=True)
+    scripts_phase(card, report)
 
     sources = {
         "K1": ("fused_forward.cu", f"{PALLAS}:111"),

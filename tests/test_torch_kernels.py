@@ -46,10 +46,8 @@ Run the card half with ``python -m pytest tests/test_torch_kernels.py -m gpu``.
 """
 
 import ctypes
-import importlib.util
 import shutil
 import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -940,7 +938,7 @@ def test_weight_gradient_sums_need_the_split_tf32_products():
 
 
 def _far_inputs(n=8, p=2000, seed=0, num_valid=0):
-    """Field inputs shaped like the main path's (``chip_smoke.field_inputs``):
+    """Field inputs shaped like the main path's (``bench_common.field_inputs``):
     points along rays from the origin out to 100 m, boxes 5-40 m ahead,
     weights at the hypernetwork's output scale."""
     rng = np.random.default_rng(seed)
@@ -1203,12 +1201,10 @@ def test_host_dir_forward_math_matches_float64_twin_at_100m(host_lib, use_rdf, n
 def _smoke_frame_with_no_valid_instance():
     """chip_smoke.py's K4b frame with no valid instance (frame 1 of its
     kernel phase's coarse pass: 99,000 points out to 100 m, N=8), built by
-    chip_smoke.field_inputs on the CPU."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    x = smoke.field_inputs(99_000, num_valid=0, seed=1 + 100, device="cpu")
+    bench_common.field_inputs on the CPU."""
+    from vsrd_tpu_torch.scripts import bench_common
+
+    x = bench_common.field_inputs(99_000, num_valid=0, seed=1 + 100, device="cpu")
     return {("w" if k == "weights" else k): v.numpy() for k, v in x.items()
             if k in ("pos", "dirs", "loc", "rot", "half", "valid", "weights")}
 

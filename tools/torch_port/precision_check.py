@@ -32,8 +32,9 @@ sys.path.insert(0, _ROOT)
 
 import torch  # noqa: E402
 
-from chip_smoke import card_name_and_power, field_inputs  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk, fused_field  # noqa: E402
+from vsrd_tpu_torch.scripts.bench_common import (  # noqa: E402
+    card_name_and_power, field_inputs)
 
 BAR = 2e-4
 

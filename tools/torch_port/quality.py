@@ -42,9 +42,10 @@ sys.path.insert(0, _ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import card_name_and_power, synthetic_frames  # noqa: E402
 from vsrd_tpu_torch.pipeline import optimize as opt, sharded  # noqa: E402
 from vsrd_tpu_torch.rendering import field_kernels as fk  # noqa: E402
+from vsrd_tpu_torch.scripts.bench_common import (  # noqa: E402
+    card_name_and_power, synthetic_frames)
 
 
 def card_label(device: str) -> str:

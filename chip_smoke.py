@@ -170,7 +170,19 @@ Phases (any failure exits non-zero):
    F=1 and F=2), kernelbench, roofline, photobench (--chunk 10) and profile
    (--steps 5; again at F=2 with --photometric --residual-coarse), the
    scenes at 4 views, each report read back from its ``--out`` JSON and
-   checked.
+   checked (profile's also for its ``--trace-dir`` trace and for no
+   ``record_function`` range counted as a kernel);
+18. noise floor (its own ``[time]`` line): the JAX package's stored
+   default-precision noise-floor trials (``tools/parity/nf_runs/*_ours_prod``:
+   scenes 0 and 7 of 6 views at 96x128 with 3 instances, trials 0-3) as one
+   F=8 batch through K4a-c for their 1500 steps (500 box-only), 512 rays,
+   24+24 samples, ``deterministic=True``, each trial from the JAX package's
+   init (``tools/torch_port/nf_inputs.npz``) and ray schedule
+   (``tools/torch_port/noise_floor.py``); each trial's matched GT IoU and its
+   IoU against the JAX run's and the reference's boxes printed; the run fails
+   where a scene's mean IoU is further from the JAX runs' mean than their
+   spread (max - min, at least 1e-2), or from the reference runs' mean than
+   theirs, or where K4a-c were not launched once a step.
 
 The second-to-last line is a JSON object with one entry per kernel and
 mode of the paths, its ``precision`` named: its launches in its path (the
@@ -198,8 +210,9 @@ in the skip slice (K1-K3, 24 instances) or the batched skip slice (K4a-c,
 bound counts the kept point-instances only (the skip slices run the default
 precision, so their residual entries are "bf16"). The entries of K4a, K4c
 (bf16) and K4b (box-only) also hold phase 15's launches by rank
-(``sharded_launches``, ``sharded_rdf_launches``, ``sharded_bf16_launches``)
-and the driver's first run's (``driver_launches``, ``driver_bf16_launches``).
+(``sharded_launches``, ``sharded_rdf_launches``, ``sharded_bf16_launches``),
+the driver's first run's (``driver_launches``, ``driver_bf16_launches``) and
+phase 18's as (launches, residual, bf16) (``noise_floor_launches``).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2750,8 +2763,11 @@ def scripts_phase(card: str, report: dict) -> None:
         for index, (name, argv, keys) in enumerate(SCRIPT_RUNS):
             module = importlib.import_module(f"vsrd_tpu_torch.scripts.{name}")
             path = os.path.join(out_dir, f"{index}_{name}.json")
+            # profile's Chrome trace goes into the phase's temporary directory
+            traced = ["--trace-dir", os.path.join(out_dir, f"{index}_trace")] \
+                if name == "profile" else []
             began = time.perf_counter()
-            module.main(argv + ["--out", path])
+            module.main(argv + traced + ["--out", path])
             with open(path) as f:
                 out = json.load(f)
             missing = [k for k in keys if k not in out]
@@ -2761,6 +2777,11 @@ def scripts_phase(card: str, report: dict) -> None:
             if "--photometric" in argv and not out["device_ms_per_step_by_category"].get(
                     "sphere trace"):
                 fail(f"scripts: profile {argv} shows no sphere-trace kernel")
+            kernels = out.get("device_ms_per_step_by_kernel", {})
+            if name == "profile" and (not os.path.exists(out["trace"]) or any(
+                    k.startswith("field_kernels.") for k in kernels)):
+                fail(f"scripts: profile {argv} wrote no trace, or counts a record_function range "
+                     f"as a kernel")
             if name == "roofline":
                 fraction = out["fraction_of_binding_bound"]
                 if not isinstance(fraction, float) or fraction > ROOFLINE_SLACK:
@@ -2768,6 +2789,105 @@ def scripts_phase(card: str, report: dict) -> None:
             print(f"[scripts] {name} {' '.join(argv)}: read back, "
                   f"{time.perf_counter() - began:.1f} s", flush=True)
     print(f"[time] scripts phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
+# ---- phase 18: the noise-floor trials against the JAX package's stored runs ----
+NOISE_FLOOR_PRECISION = "default"    # the main path's, the stored _ours_prod runs'
+NOISE_FLOOR_KERNELS = {"K4a": "field_forward", "K4c": "field_backward",
+                       "K4b": "field_dir_forward"}
+
+
+def load_noise_floor():
+    """``tools/torch_port/noise_floor.py`` under a name of its own (the JAX
+    package's tool is also ``noise_floor.py``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "torch_port",
+                        "noise_floor.py")
+    spec = importlib.util.spec_from_file_location("torch_port_noise_floor", path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def noise_floor_phase(card: str) -> dict:
+    """Phase 18: the stored default-precision trials (scenes 0 and 7 x
+    trials 0-3, the JAX package's ``_ours_prod`` runs) as one F=8 batch for
+    the trials' 1500 steps through K4a-c, each trial from the JAX package's
+    init and ray schedule; each scene's mean matched GT IoU held to the JAX
+    runs' and the reference's by the stored rule (``noise_floor.verdict``).
+    Returns each kernel's launches in the run, (launches, residual, bf16)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from vsrd_tpu_torch.rendering import field_kernels as fk
+
+    start = time.perf_counter()
+    nf = load_noise_floor()
+    recipe = nf.Recipe()
+    cfg = nf.make_config(recipe, NOISE_FLOOR_PRECISION)
+    trials = [(s, t) for s in nf.SCENES for t in range(nf.TRIALS[NOISE_FLOOR_PRECISION])]
+    inits = nf.load_inits()
+    with ThreadPoolExecutor(max_workers=len(trials)) as pool:
+        inputs = list(pool.map(lambda st: nf.trial_inputs(*st, recipe, "cuda", inits), trials))
+    setup_s = time.perf_counter() - start
+
+    fk.reset_launch_counts()
+    torch.cuda.synchronize()
+    began = time.perf_counter()
+    boxes, scalars = nf.run_port([x[0] for x in inputs], [x[2] for x in inputs],
+                                 [x[1] for x in inputs], cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - began
+    launches = {name: (getattr(fk, fn).launches, getattr(fk, fn).rdf_launches,
+                       getattr(fk, fn).bf16_launches)
+                for name, fn in NOISE_FLOOR_KERNELS.items()}
+    batched = {name: getattr(fk, fn).batched_launches for name, fn in NOISE_FLOOR_KERNELS.items()}
+    residual = recipe.steps - recipe.warmup
+    want = {"K4a": (recipe.steps, residual, residual), "K4c": (recipe.steps, residual, residual),
+            "K4b": (recipe.steps, residual, residual)}
+    if launches != want or batched != {k: v[0] for k, v in want.items()}:
+        fail(f"noise floor: launches {launches} (batched {batched}), expected {want}: one "
+             f"launch of each of K4a-c per step for all {len(trials)} frames")
+    if boxes.shape != (len(trials), recipe.instances, 8, 3) or not np.isfinite(boxes).all() \
+            or not all(np.isfinite(v).all() for v in scalars.values()):
+        fail(f"noise floor: boxes {boxes.shape} or the last step's scalars are not finite")
+
+    ious = {scene: {"port": [], "jax": [], "torch": []} for scene in nf.SCENES}
+    for (scene, trial), frame_boxes, (frame, _, _) in zip(trials, boxes, inputs):
+        port = float(nf.gt_iou(frame_boxes, frame).mean())
+        stored = nf.stored_runs(scene, trial, NOISE_FLOOR_PRECISION)
+        cross = {side: nf.cross_iou(frame_boxes, run) for side, run in stored.items()}
+        ious[scene]["port"].append(port)
+        for side, run in stored.items():
+            ious[scene][side].append(run["mean_gt_iou"])
+        print(f"[noise floor] scene {scene} trial {trial}: mean matched GT IoU {port:.4f} "
+              f"(JAX {stored['jax']['mean_gt_iou']:.4f}, reference "
+              f"{stored['torch']['mean_gt_iou']:.4f}); IoU against JAX's boxes "
+              f"{cross['jax']:.4f}, the reference's {cross['torch']:.4f}", flush=True)
+    failed = []
+    for scene, rows in ious.items():
+        for side in ("jax", "torch"):
+            rule = nf.verdict(rows["port"], rows[side])
+            print(f"[noise floor] scene {scene}: port mean {np.mean(rows['port']):.4f} "
+                  f"(spread {np.ptp(rows['port']):.4f}) against {side} "
+                  f"{np.mean(rows[side]):.4f}: gap {rule['gap']:.4f}, bar {rule['bar']:.4f}, "
+                  f"{'holds' if rule['holds'] else 'FAILS'}", flush=True)
+            if not rule["holds"]:
+                failed.append((scene, side, rule))
+    print(f"[noise floor] {len(trials)} trials as one F={len(trials)} batch, "
+          f"{recipe.steps} steps ({recipe.warmup} warmup), {recipe.rays} rays, "
+          f"{recipe.samples}+{recipe.samples} samples, {NOISE_FLOOR_PRECISION} precision: "
+          f"{seconds:.1f} s ({1e3 * seconds / recipe.steps:.2f} ms/step; inputs "
+          f"{setup_s:.1f} s); launches (all, residual, bf16) {json.dumps(launches)} on {card}",
+          flush=True)
+    if failed:
+        fail(f"noise floor: the port's converged IoU is outside the stored rule: {failed}")
+    print(f"[time] noise-floor phase: {time.perf_counter() - start:.1f} s", flush=True)
+    return launches
 
 
 def main():
@@ -2908,6 +3028,7 @@ def main():
     library = library_phase(card)
     print(f"[time] sharded and library phase: {time.perf_counter() - start:.1f} s", flush=True)
     scripts_phase(card, report)
+    noise_floor = noise_floor_phase(card)
 
     sources = {
         "K1": ("fused_forward.cu", f"{PALLAS}:111"),
@@ -2960,7 +3081,8 @@ def main():
                     "sharded_rdf_launches": [r[name][1] for r in sharded_run["launches"]],
                     "sharded_bf16_launches": [r[name][2] for r in sharded_run["launches"]],
                     "driver_launches": drive["launches"][DRIVER_KERNELS[name]][1],
-                    "driver_bf16_launches": drive["launches"][DRIVER_KERNELS[name]][2]}
+                    "driver_bf16_launches": drive["launches"][DRIVER_KERNELS[name]][2],
+                    "noise_floor_launches": noise_floor[name]}
                    if name in ("K4a", "K4c", "K4b") and mode == ("box" if coarse else "bf16")
                    else {}),
             })

@@ -6,7 +6,8 @@ applied to one seeded sample dict, so the two draw the same numbers in the
 same order:
 
 * ``Cropper``, ``RandomHorizontalFlipper`` and ``BoxJitter``: equal, the K
-  matrices too;
+  matrices too; ``Resizer`` in each of its image and mask modes: equal where
+  it takes the nearest pixel, within 1e-5 where it interpolates;
 * ``FractalBrownianMotion`` within 1e-6 absolute, ``FastFractalBrownianMotion``
   within 1e-5 (its upsampling is ``resize_linear``, held to cv2.resize within
   2e-7 by ``tests/test_torch_png.py``), ``RandomConvolution`` within 1e-5
@@ -61,6 +62,23 @@ def test_cropper_matches_jax(position, size):
     got = tt.Cropper(position, size)(sample)
     _assert_same(got, want, keys=("image", "masks", "intrinsic_matrix"))
     assert got["image_size"] == got["image"].shape[:2]
+
+
+@pytest.mark.parametrize("size", [(16, 25), (40, 50)])
+@pytest.mark.parametrize("image_mode, masks_mode", [("bilinear", "nearest"),
+                                                    ("nearest", "bilinear"),
+                                                    ("nearest", "nearest"),
+                                                    ("bilinear", "bilinear")])
+def test_resizer_modes_match_jax(image_mode, masks_mode, size):
+    """Every interpolation mode of the JAX ``Resizer``, down and up: nearest
+    results equal, bilinear ones within 1e-5 (``resize_linear``, as above)."""
+    sample = _sample(2)
+    want = jt.Resizer(size, image_mode, masks_mode)(sample)
+    got = tt.Resizer(size, image_mode, masks_mode)(sample)
+    for key, mode in (("image", image_mode), ("masks", masks_mode)):
+        _assert_same(got, want, atol=1e-5 if mode == "bilinear" else 0.0, keys=(key,))
+    _assert_same(got, want, keys=("intrinsic_matrix",))
+    assert got["image_size"] == tuple(size)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -294,6 +294,22 @@ def test_profile_runs_on_the_cpu(phase, switches, tmp_path, monkeypatch, capsys)
     assert 0 < len(report["host_ms_per_step_by_op"]) <= 5
 
 
+def test_profile_writes_its_trace(tmp_path, monkeypatch, capsys):
+    """``--trace-dir``: the profiled chunk as a Chrome trace, its path
+    printed and reported, the field wrappers' calls named in it."""
+    trace_dir = tmp_path / "trace"
+    argv = SMALL + ["--phase", "warmup", "--rays", "8", "--samples", "4", "--steps", "2",
+                    "--trace-dir", str(trace_dir)]
+    printed, report = _run(profile, argv, tmp_path, monkeypatch, capsys)
+    path = trace_dir / "trace.json"
+    assert report["trace"] == str(path)
+    assert f"trace: {path}" in printed
+    names = {event.get("name") for event in json.loads(path.read_text())["traceEvents"]}
+    for wrapper in ("field_kernels.fused_field_with_grad",
+                    "field_kernels.fused_field_dir_forward"):
+        assert wrapper in names, wrapper
+
+
 def test_profile_groups_kernels_by_name_and_category():
     key = "void vsrd::rev_forward_kernel<true, 384>(int, float const*)"
     assert profile.kernel_name(key) == "vsrd::rev_forward_kernel"

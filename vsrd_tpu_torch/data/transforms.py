@@ -304,13 +304,17 @@ def fill_polygon(shape, polygon: np.ndarray) -> np.ndarray:
 
 
 class Resizer:
-    """Resize the image (bilinear, when the sample holds it) and the masks
-    (nearest) to ``image_size`` and rescale K."""
+    """Resize the image (when the sample holds it) and the masks to
+    ``image_size`` and rescale K. As in the JAX package, the image is
+    resized bilinearly for ``image_interp_mode="bilinear"`` and by nearest
+    neighbour otherwise, the masks by nearest neighbour for
+    ``masks_interp_mode="nearest"`` and bilinearly otherwise (OpenCV's
+    INTER_LINEAR and INTER_NEAREST, ``resize_linear`` and ``resize_nearest``)."""
 
     def __init__(self, image_size, image_interp_mode="bilinear", masks_interp_mode="nearest"):
-        if masks_interp_mode != "nearest":
-            raise NotImplementedError("the port resizes masks with nearest interpolation only")
         self.image_size = tuple(image_size)
+        self.image_resize = resize_linear if image_interp_mode == "bilinear" else resize_nearest
+        self.masks_resize = resize_nearest if masks_interp_mode == "nearest" else resize_linear
 
     def __call__(self, sample):
         h, w = sample["image_size"]
@@ -318,11 +322,11 @@ class Resizer:
         sx = self.image_size[1] / w
         sample = dict(sample, image_size=self.image_size)
         if sample.get("image") is not None:
-            sample["image"] = resize_linear(sample["image"], self.image_size)
+            sample["image"] = self.image_resize(sample["image"], self.image_size)
         masks = sample.get("masks")
         if masks is not None:
             if len(masks):
-                sample["masks"] = np.stack([resize_nearest(m, self.image_size) for m in masks])
+                sample["masks"] = np.stack([self.masks_resize(m, self.image_size) for m in masks])
             else:
                 sample["masks"] = np.empty((0, *self.image_size), dtype=masks.dtype)
         k = sample.get("intrinsic_matrix")

@@ -88,6 +88,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.profiler import record_function
 
 from . import fused_field
 
@@ -478,9 +479,10 @@ class _FusedFieldWithGrad(torch.autograd.Function):
         du = zeros(lead) if du is None else du
         dw = zeros(*lead, n) if dw is None else dw
         dg = zeros(*lead, 3) if dg is None else dg
-        dloc, drot, dhalf, dweights = field_backward(
-            positions, locations, rotations, half_dims, valid, weights, temperature,
-            du, dw, dg, ctx.position_scale, group_mask, ctx.precision)
+        with record_function("field_kernels.field_backward"):
+            dloc, drot, dhalf, dweights = field_backward(
+                positions, locations, rotations, half_dims, valid, weights, temperature,
+                du, dw, dg, ctx.position_scale, group_mask, ctx.precision)
         return None, dloc, drot, dhalf, None, dweights, None, None, None, None
 
 
@@ -495,16 +497,19 @@ def fused_field_with_grad(positions, locations, rotations, half_dims, valid, wei
 
     CUDA tensors go through K1 (K4a) and, for the backward, K2 (K4c); CPU
     tensors through the plain twins ``fused_field.scene_eval_with_grad``
-    and ``scene_eval_with_grad_batched``."""
-    if positions.device.type == "cuda":
-        return _FusedFieldWithGrad.apply(positions, locations, rotations, half_dims,
-                                         valid, weights, temperature, position_scale,
-                                         group_mask, precision)
-    if positions.device.type == "cpu":
-        twin = (fused_field.scene_eval_with_grad_batched if positions.ndim == 3
-                else fused_field.scene_eval_with_grad)
-        return twin(positions, locations, rotations, half_dims, valid, weights, temperature,
-                    position_scale, group_mask, MASK_TILE, precision)
+    and ``scene_eval_with_grad_batched``. A profiler trace names the call
+    ``field_kernels.fused_field_with_grad`` and K2's backward
+    ``field_kernels.field_backward``."""
+    with record_function("field_kernels.fused_field_with_grad"):
+        if positions.device.type == "cuda":
+            return _FusedFieldWithGrad.apply(positions, locations, rotations, half_dims,
+                                             valid, weights, temperature, position_scale,
+                                             group_mask, precision)
+        if positions.device.type == "cpu":
+            twin = (fused_field.scene_eval_with_grad_batched if positions.ndim == 3
+                    else fused_field.scene_eval_with_grad)
+            return twin(positions, locations, rotations, half_dims, valid, weights,
+                        temperature, position_scale, group_mask, MASK_TILE, precision)
     raise ValueError(f"no field kernel for device {positions.device}")
 
 
@@ -514,14 +519,16 @@ def fused_field_dir_forward(positions, directions, locations, rotations, half_di
     """(u [(F,) P], w [(F,) P, N], <dir, grad_x u> [(F,) P]), forward only:
     K3 (K4b) on CUDA tensors, the plain twins ``fused_field.scene_eval_dir``
     and ``scene_eval_dir_batched`` on CPU ones; ``group_mask`` and
-    ``precision`` as in ``fused_field_with_grad``."""
-    if positions.device.type == "cuda":
-        return field_dir_forward(positions, directions, locations, rotations, half_dims,
-                                 valid, weights, temperature, position_scale, group_mask,
-                                 precision)
-    if positions.device.type == "cpu":
-        twin = (fused_field.scene_eval_dir_batched if positions.ndim == 3
-                else fused_field.scene_eval_dir)
-        return twin(positions, directions, locations, rotations, half_dims, valid, weights,
-                    temperature, position_scale, group_mask, MASK_TILE, precision)
+    ``precision`` as in ``fused_field_with_grad``; a profiler trace names
+    the call ``field_kernels.fused_field_dir_forward``."""
+    with record_function("field_kernels.fused_field_dir_forward"):
+        if positions.device.type == "cuda":
+            return field_dir_forward(positions, directions, locations, rotations, half_dims,
+                                     valid, weights, temperature, position_scale, group_mask,
+                                     precision)
+        if positions.device.type == "cpu":
+            twin = (fused_field.scene_eval_dir_batched if positions.ndim == 3
+                    else fused_field.scene_eval_dir)
+            return twin(positions, directions, locations, rotations, half_dims, valid,
+                        weights, temperature, position_scale, group_mask, MASK_TILE, precision)
     raise ValueError(f"no field kernel for device {positions.device}")

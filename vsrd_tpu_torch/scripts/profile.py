@@ -29,7 +29,12 @@ memcpy/memset, and elementwise/reduce for the rest); the busy ms per step
 step (1 - busy / wall), the kernel launches per step and, for F > 1, the
 wall ms per frame-step. On the CPU it
 prints the wall time and the host operators: device times are not
-measured there. ``--out`` writes the report as JSON.
+measured there. ``--out`` writes the report as JSON. The profiled chunk's
+trace is written as a Chrome trace (``chrome://tracing``, Perfetto) to
+``--trace-dir``/``trace.json``, as the JAX script writes its trace to its
+``--trace-dir``; the field wrappers' calls are named in it
+(``field_kernels.fused_field_with_grad``, ``fused_field_dir_forward``
+and, on a card, ``field_backward``).
 
 The port's own switches: ``--residual-coarse`` runs the coarse pass with
 the residual field after warmup (``kernel_box_coarse=False``) instead of
@@ -43,6 +48,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import os
+import tempfile
 
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -101,6 +108,9 @@ def parse_args(argv=None):
                         help="the coarse pass with the residual field (kernel_box_coarse=False)")
     parser.add_argument("--photometric", action="store_true",
                         help="the photometric branch at weight 1.0")
+    parser.add_argument("--trace-dir", default=os.path.join(tempfile.gettempdir(),
+                                                            "vsrd_tpu_torch_trace"),
+                        help="where the profiled chunk's Chrome trace (trace.json) goes")
     parser.add_argument("--out", help="write the report as JSON to this path")
     return parser.parse_args(argv)
 
@@ -133,11 +143,17 @@ def main(argv=None) -> dict:
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
         bc.run_chunk(params, state, frame, cfg, start, args.steps, optimizer)
+    os.makedirs(args.trace_dir, exist_ok=True)
+    trace = os.path.join(args.trace_dir, "trace.json")
+    prof.export_chrome_trace(trace)
+    print(f"trace: {trace}", flush=True)
     events = prof.key_averages()
     per_step = 1e3 * args.steps      # profiler us over a chunk -> ms per step
     by_kernel, launches = collections.Counter(), collections.Counter()
     for e in events:
-        if e.device_type == DeviceType.CUDA:
+        # a record_function range (the field wrappers' names) is also reported on
+        # the device, as the span of its kernels: it is not a kernel
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             name = kernel_name(e.key)
             by_kernel[name] += e.self_device_time_total / per_step
             launches[name] += e.count / args.steps
@@ -148,8 +164,9 @@ def main(argv=None) -> dict:
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:args.top]
     report = {
-        "workload": {k: v for k, v in vars(args).items() if k != "out"},
+        "workload": {k: v for k, v in vars(args).items() if k not in ("out", "trace_dir")},
         "card": card,
+        "trace": trace,
         "wall_ms_per_step": wall,
         "wall_ms_per_frame_step": wall / args.frames,
         "host_ms_per_step_by_op": {e.key: e.self_cpu_time_total / per_step for e in host},

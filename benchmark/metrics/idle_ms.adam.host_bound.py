@@ -1,0 +1,6 @@
+"""``idle_ms.adam`` (``idle_ms.adam.py``) in the host-bound cells, where ``busy_frame_s``
+stands end to end in place of ``frame_s``."""
+
+from benchmark.readers import reader
+
+read = reader("idle_ms.adam")

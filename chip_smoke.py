@@ -2779,7 +2779,7 @@ def scripts_phase(card: str, report: dict) -> None:
                 fail(f"scripts: profile {argv} shows no sphere-trace kernel")
             kernels = out.get("device_ms_per_step_by_kernel", {})
             if name == "profile" and (not os.path.exists(out["trace"]) or any(
-                    k.startswith("field_kernels.") for k in kernels)):
+                    k.startswith(("field_kernels.", "vsrd.")) for k in kernels)):
                 fail(f"scripts: profile {argv} wrote no trace, or counts a record_function range "
                      f"as a kernel")
             if name == "roofline":

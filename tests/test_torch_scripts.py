@@ -29,6 +29,7 @@ from vsrd_tpu.pipeline import frame as jfm
 from vsrd_tpu.pipeline import optimize as jopt
 from vsrd_tpu_torch.scripts import (bench_common, kernelbench, photobench, profile, roofline,
                                     steptime)
+from vsrd_tpu_torch.utils import spans
 
 torch.set_num_threads(2)
 
@@ -292,6 +293,12 @@ def test_profile_runs_on_the_cpu(phase, switches, tmp_path, monkeypatch, capsys)
     assert report["wall_ms_per_frame_step"] == pytest.approx(
         report["wall_ms_per_step"] / frames)
     assert 0 < len(report["host_ms_per_step_by_op"]) <= 5
+    by_stage = report["host_ms_per_step_by_stage"]
+    assert set(by_stage) == {*spans.STAGES, spans.STEP}
+    assert all(ms > 0 for ms in by_stage.values())
+    # the chunk's copy of its scalars is a report outside every step
+    inside = sum(by_stage[stage] for stage in spans.STAGES) - by_stage["vsrd.report"]
+    assert inside < by_stage[spans.STEP]
 
 
 def test_profile_writes_its_trace(tmp_path, monkeypatch, capsys):

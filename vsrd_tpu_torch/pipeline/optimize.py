@@ -13,10 +13,15 @@ also the multi-view photometric loss of sphere-traced surfels
 
 The field is evaluated by the kernels of ``rendering/field_kernels.py``
 (K1/K2 for the fine pass, K3 for the box-only coarse pass); on CPU
-tensors they run their plain twins. The loop runs in Python with no host
-synchronisation inside a chunk: the step index, the phase and the
-metric cadence are host integers, and the per-step scalars are copied to
-the host once per chunk.
+tensors they run their plain twins. The loop runs in Python: the step
+index, the phase and the metric cadence are host integers, and the
+per-step scalars are copied to the host once per chunk. A step still
+waits on the device a few times: each small constant made from a host
+list (in decode and projection, the annealing scalar) is a blocking copy,
+and the cumulative product's backward reads a value back. Under
+``torch.profiler`` each step is a ``vsrd.step`` span cut into the stages
+of ``utils/spans.py`` (boxes, rays, render, backward, adam, report); with
+no profiler the spans cost a flag check each.
 
 Co-optimized frame batches (``optimize_frames_batched``): a FrameData with
 a leading frame axis (``sharded.stack_frames``) and params and Adam
@@ -50,6 +55,7 @@ from ..models import box_parameters, hyper_field
 from ..ops import geometry, iou2d, iou3d, matching, sampling
 from ..parallel.distributed import all_reduce_sum
 from ..rendering import field_kernels, renderer, scene
+from ..utils.spans import STEP, span
 from . import photometric
 from .frame import FrameData, ray_directions_at
 
@@ -382,158 +388,164 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
         return _masked_mean(values, mask, dim=tuple(range(len(lead), values.ndim)))
 
     # ---------------- projection + matching ----------------
-    decoded = box_parameters.decode_boxes(params["boxes"])
-    cam_corners, pd_boxes_2d = _project_boxes_all_views(decoded["boxes_3d"], frame)
-    pd_flat = _at_target(pd_boxes_2d, frame).reshape(*lead, n, 4)
-    gt_flat = _at_target(frame.gt_boxes_2d, frame).reshape(*lead, n, 4)
-    cost = -iou2d.distance_box_iou(pd_flat, gt_flat)
-    row_to_col = matching.masked_linear_sum_assignment(cost.detach(), frame.valid, frame.valid)
+    with span("vsrd.boxes"):
+        decoded = box_parameters.decode_boxes(params["boxes"])
+        cam_corners, pd_boxes_2d = _project_boxes_all_views(decoded["boxes_3d"], frame)
+        pd_flat = _at_target(pd_boxes_2d, frame).reshape(*lead, n, 4)
+        gt_flat = _at_target(frame.gt_boxes_2d, frame).reshape(*lead, n, 4)
+        cost = -iou2d.distance_box_iou(pd_flat, gt_flat)
+        row_to_col = matching.masked_linear_sum_assignment(cost.detach(), frame.valid, frame.valid)
 
-    gt_matched = torch.take_along_dim(frame.gt_boxes_2d, row_to_col[..., None, :, None, None],
-                                      dim=-3)
-    vis_matched = torch.take_along_dim(frame.visible, row_to_col[..., None, :], dim=-1)
-    pair_mask = vis_matched & frame.valid[..., None, :]
-    pd_xyxy = pd_boxes_2d.reshape(*lead, -1, n, 4)
-    gt_xyxy = gt_matched.reshape(*lead, -1, n, 4)
-    iou_loss = frame_mean(iou2d.distance_box_iou_loss(pd_xyxy, gt_xyxy), pair_mask)
-    l1_loss = frame_mean(iou2d.smooth_l1(pd_xyxy, gt_xyxy), pair_mask[..., None])
+        gt_matched = torch.take_along_dim(frame.gt_boxes_2d, row_to_col[..., None, :, None, None],
+                                          dim=-3)
+        vis_matched = torch.take_along_dim(frame.visible, row_to_col[..., None, :], dim=-1)
+        pair_mask = vis_matched & frame.valid[..., None, :]
+        pd_xyxy = pd_boxes_2d.reshape(*lead, -1, n, 4)
+        gt_xyxy = gt_matched.reshape(*lead, -1, n, 4)
+        iou_loss = frame_mean(iou2d.distance_box_iou_loss(pd_xyxy, gt_xyxy), pair_mask)
+        l1_loss = frame_mean(iou2d.smooth_l1(pd_xyxy, gt_xyxy), pair_mask[..., None])
+        cam_corners_target = _at_target(cam_corners, frame)
 
-    # ---------------- annealing (f32, as in the JAX package) ----------------
-    progress = torch.tensor(step, dtype=torch.float32, device=device) / cfg.num_steps
-    temperature = cosine_annealing(
-        progress, cfg.max_sdf_union_temperature, cfg.min_sdf_union_temperature)
-    std = cosine_annealing(progress, cfg.max_sdf_std_deviation, cfg.min_sdf_std_deviation)
-    cosine_ratio = progress
+    with span("vsrd.rays"):
+        # ---------------- annealing (f32, as in the JAX package) ----------------
+        progress = torch.tensor(step, dtype=torch.float32, device=device) / cfg.num_steps
+        temperature = cosine_annealing(
+            progress, cfg.max_sdf_union_temperature, cfg.min_sdf_union_temperature)
+        std = cosine_annealing(progress, cfg.max_sdf_std_deviation, cfg.min_sdf_std_deviation)
+        cosine_ratio = progress
 
-    # ---------------- scene field ----------------
-    field_weights = None
-    if use_rdf:
-        field_weights = hyper_field.hypernetwork_apply(params["hyper"], decoded["embeddings"])
-    locations = decoded["locations"]
-    rotations = decoded["orientations"]
-    half_dims = decoded["dimensions"]
-    scale = cfg.position_scale
-    # the field's inputs: in instance_order with the skip mode
-    group_skip = cfg.kernel_group_skip and n > 8
-    field_in = (locations, rotations, half_dims, frame.valid, field_weights)
-    if group_skip:
-        perm = instance_order(locations, frame.valid)
-        inv_perm = torch.argsort(perm, dim=-1)
-
-        def gather(t):
-            index = perm.reshape(*perm.shape, *([1] * (t.ndim - perm.ndim)))
-            return torch.take_along_dim(t, index, dim=len(lead))
-
-        field_in = tuple(None if t is None else gather(t) for t in field_in)
-    loc_f, rot_f, half_f, valid_b, weights_f = field_in
-    valid_f = valid_b.to(torch.float32)
-
-    def field_call(kernel, positions, *extra, weights):
-        """One field call on ``[(F,) R, S, 3]`` positions as ``[(F,) R * S,
-        3]``, with its keep mask in the skip mode; the weights come back in
-        the original instance order."""
-        shape = positions.shape[:-1]
-        flat = positions.reshape(*lead, -1, 3)
-        mask = (field_kernels.group_mask_for(flat, loc_f, half_f, valid_f, temperature)
-                if group_skip else None)
-        u, w, x = kernel(flat, *(e.reshape(*lead, -1, 3) for e in extra), loc_f, rot_f,
-                         half_f, valid_f, weights, temperature, scale, mask, precision)
+        # ---------------- scene field ----------------
+        field_weights = None
+        if use_rdf:
+            field_weights = hyper_field.hypernetwork_apply(params["hyper"], decoded["embeddings"])
+        locations = decoded["locations"]
+        rotations = decoded["orientations"]
+        half_dims = decoded["dimensions"]
+        scale = cfg.position_scale
+        # the field's inputs: in instance_order with the skip mode
+        group_skip = cfg.kernel_group_skip and n > 8
+        field_in = (locations, rotations, half_dims, frame.valid, field_weights)
         if group_skip:
-            w = torch.take_along_dim(w, inv_perm[..., None, :].expand(w.shape), dim=-1)
-        return u.reshape(shape), w.reshape(*shape, n), x.reshape(*shape, *x.shape[len(lead) + 1:])
+            perm = instance_order(locations, frame.valid)
+            inv_perm = torch.argsort(perm, dim=-1)
 
-    precision = cfg.kernel_matmul_precision
+            def gather(t):
+                index = perm.reshape(*perm.shape, *([1] * (t.ndim - perm.ndim)))
+                return torch.take_along_dim(t, index, dim=len(lead))
 
-    def field_with_grad(positions):
-        return field_call(field_kernels.fused_field_with_grad, positions, weights=weights_f)
+            field_in = tuple(None if t is None else gather(t) for t in field_in)
+        loc_f, rot_f, half_f, valid_b, weights_f = field_in
+        valid_f = valid_b.to(torch.float32)
 
-    field_with_dirgrad_coarse = None
-    if cfg.kernel_dir_coarse and cfg.kernel_matmul_precision != "highest":
-        coarse_weights = None if (cfg.kernel_box_coarse and use_rdf) else weights_f
+        def field_call(kernel, positions, *extra, weights):
+            """One field call on ``[(F,) R, S, 3]`` positions as ``[(F,) R * S,
+            3]``, with its keep mask in the skip mode; the weights come back in
+            the original instance order."""
+            shape = positions.shape[:-1]
+            flat = positions.reshape(*lead, -1, 3)
+            mask = (field_kernels.group_mask_for(flat, loc_f, half_f, valid_f, temperature)
+                    if group_skip else None)
+            u, w, x = kernel(flat, *(e.reshape(*lead, -1, 3) for e in extra), loc_f, rot_f,
+                             half_f, valid_f, weights, temperature, scale, mask, precision)
+            if group_skip:
+                w = torch.take_along_dim(w, inv_perm[..., None, :].expand(w.shape), dim=-1)
+            return (u.reshape(shape), w.reshape(*shape, n),
+                    x.reshape(*shape, *x.shape[len(lead) + 1:]))
 
-        def field_with_dirgrad_coarse(positions, directions):
-            return field_call(field_kernels.fused_field_dir_forward, positions, directions,
-                              weights=None if coarse_weights is None else coarse_weights.detach())
+        precision = cfg.kernel_matmul_precision
 
-    # ---------------- silhouette rendering ----------------
-    if ray_indices is None:
-        cand_idx = sampling.multinomial_logits(
-            frame.candidate_weights, cfg.num_rays, generator=generator)
-        ray_idx = torch.take_along_dim(frame.candidate_indices, cand_idx, dim=-1)
-    else:
-        ray_idx = ray_indices.long()
-    render_generator = generator
-    if sp_group is not None:
-        ray_idx, render_generator = sp_ray_slice(ray_idx, generator, sp_group)
-    origins, directions = ray_directions_at(frame, ray_idx)
-    if group_skip:
-        # targets follow ray_idx, and every ray reduction is a mean
-        order = ray_order(directions)
-        ray_idx = torch.take_along_dim(ray_idx, order, dim=-1)
-        origins = torch.take_along_dim(origins, order[..., None], dim=-2)
-        directions = torch.take_along_dim(directions, order[..., None], dim=-2)
+        def field_with_grad(positions):
+            return field_call(field_kernels.fused_field_with_grad, positions, weights=weights_f)
 
-    out = renderer.hierarchical_render(
-        origins, directions, cfg.distance_range, cfg.num_samples, std, cosine_ratio,
-        field_with_grad=field_with_grad,
-        field_with_dirgrad_coarse=field_with_dirgrad_coarse,
-        deterministic=cfg.deterministic, generator=render_generator,
-    )
-    rendered = out.features  # [(F,) R, N] per-ray instance probabilities
+        field_with_dirgrad_coarse = None
+        if cfg.kernel_dir_coarse and cfg.kernel_matmul_precision != "highest":
+            coarse_weights = None if (cfg.kernel_box_coarse and use_rdf) else weights_f
 
-    targets = torch.take_along_dim(frame.soft_masks_flat, ray_idx[..., None], dim=-2)
-    targets = torch.take_along_dim(targets.to(rendered.dtype), row_to_col[..., None, :], dim=-1)
-    bce = _binary_cross_entropy(rendered, targets)
-    silhouette_loss = _masked_mean(bce, frame.valid[..., None, :], dim=(-2, -1), group=sp_group)
+            def field_with_dirgrad_coarse(positions, directions):
+                weights = None if coarse_weights is None else coarse_weights.detach()
+                return field_call(field_kernels.fused_field_dir_forward, positions, directions,
+                                  weights=weights)
 
-    losses = {
-        "iou_projection_loss": iou_loss,
-        "l1_projection_loss": l1_loss,
-        "silhouette_loss": silhouette_loss,
-    }
-    zero = torch.zeros(lead, device=device)
-    if use_rdf:
-        norms = torch.linalg.vector_norm(out.gradients, dim=-1)
-        squares = torch.square(norms - 1.0)
-        if sp_group is None:
-            losses["eikonal_loss"] = torch.mean(squares, dim=(-2, -1))
+        # ---------------- silhouette rendering ----------------
+        if ray_indices is None:
+            cand_idx = sampling.multinomial_logits(
+                frame.candidate_weights, cfg.num_rays, generator=generator)
+            ray_idx = torch.take_along_dim(frame.candidate_indices, cand_idx, dim=-1)
         else:
-            losses["eikonal_loss"] = _masked_mean(squares, torch.ones_like(squares), dim=(-2, -1),
-                                                  group=sp_group)
-    else:
-        losses["eikonal_loss"] = zero
-    if cfg.photometric_weight > 0.0 and use_rdf and frame.gray_images is not None:
-        hard = scene.SceneParams(locations, rotations, half_dims, frame.valid, field_weights)
-        losses["photometric_loss"], _ = photometric.photometric_loss(
-            frame, hard, render_generator,
-            num_rays=cfg.surface_num_rays,
-            num_iterations=cfg.surface_num_iterations,
-            convergence_criteria=cfg.surface_convergence_criteria,
-            bounding_radius=cfg.surface_bounding_radius,
-            patch_size=cfg.surface_patch_size,
-            local_idx=surface_indices,
-            position_scale=scale,
-        )
+            ray_idx = ray_indices.long()
+        render_generator = generator
         if sp_group is not None:
-            # each process draws its own surface rays: the average over the
-            # group (pmean in the JAX package) is the reported value
-            losses["photometric_loss"] = (all_reduce_sum(losses["photometric_loss"], sp_group)
-                                          / dist.get_world_size(sp_group))
-    else:
-        losses["photometric_loss"] = zero
+            ray_idx, render_generator = sp_ray_slice(ray_idx, generator, sp_group)
+        origins, directions = ray_directions_at(frame, ray_idx)
+        if group_skip:
+            # targets follow ray_idx, and every ray reduction is a mean
+            order = ray_order(directions)
+            ray_idx = torch.take_along_dim(ray_idx, order, dim=-1)
+            origins = torch.take_along_dim(origins, order[..., None], dim=-2)
+            directions = torch.take_along_dim(directions, order[..., None], dim=-2)
 
-    total = (
-        cfg.iou_projection_weight * losses["iou_projection_loss"]
-        + cfg.l1_projection_weight * losses["l1_projection_loss"]
-        + cfg.silhouette_weight * losses["silhouette_loss"]
-        + cfg.eikonal_weight * losses["eikonal_loss"]
-        + cfg.photometric_weight * losses["photometric_loss"]
-    )
+    with span("vsrd.render"):
+        out = renderer.hierarchical_render(
+            origins, directions, cfg.distance_range, cfg.num_samples, std, cosine_ratio,
+            field_with_grad=field_with_grad,
+            field_with_dirgrad_coarse=field_with_dirgrad_coarse,
+            deterministic=cfg.deterministic, generator=render_generator,
+        )
+        rendered = out.features  # [(F,) R, N] per-ray instance probabilities
+
+        targets = torch.take_along_dim(frame.soft_masks_flat, ray_idx[..., None], dim=-2)
+        targets = torch.take_along_dim(targets.to(rendered.dtype), row_to_col[..., None, :], dim=-1)
+        bce = _binary_cross_entropy(rendered, targets)
+        silhouette_loss = _masked_mean(bce, frame.valid[..., None, :], dim=(-2, -1), group=sp_group)
+
+        losses = {
+            "iou_projection_loss": iou_loss,
+            "l1_projection_loss": l1_loss,
+            "silhouette_loss": silhouette_loss,
+        }
+        zero = torch.zeros(lead, device=device)
+        if use_rdf:
+            norms = torch.linalg.vector_norm(out.gradients, dim=-1)
+            squares = torch.square(norms - 1.0)
+            if sp_group is None:
+                losses["eikonal_loss"] = torch.mean(squares, dim=(-2, -1))
+            else:
+                losses["eikonal_loss"] = _masked_mean(squares, torch.ones_like(squares),
+                                                      dim=(-2, -1), group=sp_group)
+        else:
+            losses["eikonal_loss"] = zero
+        if cfg.photometric_weight > 0.0 and use_rdf and frame.gray_images is not None:
+            hard = scene.SceneParams(locations, rotations, half_dims, frame.valid, field_weights)
+            losses["photometric_loss"], _ = photometric.photometric_loss(
+                frame, hard, render_generator,
+                num_rays=cfg.surface_num_rays,
+                num_iterations=cfg.surface_num_iterations,
+                convergence_criteria=cfg.surface_convergence_criteria,
+                bounding_radius=cfg.surface_bounding_radius,
+                patch_size=cfg.surface_patch_size,
+                local_idx=surface_indices,
+                position_scale=scale,
+            )
+            if sp_group is not None:
+                # each process draws its own surface rays: the average over the
+                # group (pmean in the JAX package) is the reported value
+                losses["photometric_loss"] = (all_reduce_sum(losses["photometric_loss"], sp_group)
+                                              / dist.get_world_size(sp_group))
+        else:
+            losses["photometric_loss"] = zero
+
+        total = (
+            cfg.iou_projection_weight * losses["iou_projection_loss"]
+            + cfg.l1_projection_weight * losses["l1_projection_loss"]
+            + cfg.silhouette_weight * losses["silhouette_loss"]
+            + cfg.eikonal_weight * losses["eikonal_loss"]
+            + cfg.photometric_weight * losses["photometric_loss"]
+        )
     aux = {
         "losses": losses,
         "total": total,
         "row_to_col": row_to_col,
-        "cam_corners_target": _at_target(cam_corners, frame),
+        "cam_corners_target": cam_corners_target,
         "temperature": temperature,
         "sdf_std_deviation": std,
     }
@@ -601,31 +613,37 @@ def train_step(params, opt_state, frame: FrameData, step: int, cfg: Optimization
     sharded over the group (``compute_loss``) and the gradients averaged
     over it (``sp_mean_gradients``) before the update."""
     use_rdf = step >= cfg.warmup_steps
-    leaves = [t for _, t in tree_leaves(params)]
-    for leaf in leaves:
-        leaf.requires_grad_(True)
-    total, aux = compute_loss(params, frame, step, cfg, use_rdf, generator, ray_indices,
-                              sp_group=sp_group)
-    grads = torch.autograd.grad(total.sum(), leaves, allow_unused=True)
-    for leaf in leaves:
-        leaf.requires_grad_(False)
-    if sp_group is not None:
-        grads = sp_mean_gradients(grads, sp_group)
-    optimizer.step(params, grads, opt_state)
+    with span(STEP):
+        leaves = [t for _, t in tree_leaves(params)]
+        with span("vsrd.backward"):
+            for leaf in leaves:
+                leaf.requires_grad_(True)
+        total, aux = compute_loss(params, frame, step, cfg, use_rdf, generator, ray_indices,
+                                  sp_group=sp_group)
+        with span("vsrd.backward"):
+            grads = torch.autograd.grad(total.sum(), leaves, allow_unused=True)
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+            if sp_group is not None:
+                grads = sp_mean_gradients(grads, sp_group)
+        with span("vsrd.adam"):
+            optimizer.step(params, grads, opt_state)
 
-    lead = frame.valid.shape[:-1]
-    if (step + 1) % cfg.metric_interval == 0:
-        metrics = compute_metrics(frame, aux["cam_corners_target"].detach(), aux["row_to_col"])
-    else:
-        zero = torch.zeros(lead, device=frame.device)
-        metrics = {name: zero for name in METRIC_NAMES}
-    return {
-        "loss": total.detach(),
-        **{k: v.detach() for k, v in aux["losses"].items()},
-        **metrics,
-        "temperature": aux["temperature"].expand(lead),
-        "sdf_std_deviation": aux["sdf_std_deviation"].expand(lead),
-    }
+        with span("vsrd.report"):
+            lead = frame.valid.shape[:-1]
+            if (step + 1) % cfg.metric_interval == 0:
+                metrics = compute_metrics(frame, aux["cam_corners_target"].detach(),
+                                          aux["row_to_col"])
+            else:
+                zero = torch.zeros(lead, device=frame.device)
+                metrics = {name: zero for name in METRIC_NAMES}
+            return {
+                "loss": total.detach(),
+                **{k: v.detach() for k, v in aux["losses"].items()},
+                **metrics,
+                "temperature": aux["temperature"].expand(lead),
+                "sdf_std_deviation": aux["sdf_std_deviation"].expand(lead),
+            }
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -644,7 +662,8 @@ def optimize_chunk(params, opt_state, frame: FrameData, seed: int, start_step: i
     for step in range(start_step, start_step + num_steps):
         gen = step_generator(seed, step, frame.device)
         scalars.append(train_step(params, opt_state, frame, step, cfg, optimizer, gen))
-    return {k: torch.stack([s[k] for s in scalars]).cpu().numpy() for k in scalars[0]}
+    with span("vsrd.report"):
+        return {k: torch.stack([s[k] for s in scalars]).cpu().numpy() for k in scalars[0]}
 
 
 def optimize_frame(frame: FrameData, seed: int,

@@ -88,7 +88,7 @@ import time
 from pathlib import Path
 
 import torch
-from torch.profiler import record_function
+from ..utils.spans import span
 
 from . import fused_field
 
@@ -479,7 +479,7 @@ class _FusedFieldWithGrad(torch.autograd.Function):
         du = zeros(lead) if du is None else du
         dw = zeros(*lead, n) if dw is None else dw
         dg = zeros(*lead, 3) if dg is None else dg
-        with record_function("field_kernels.field_backward"):
+        with span("field_kernels.field_backward"):
             dloc, drot, dhalf, dweights = field_backward(
                 positions, locations, rotations, half_dims, valid, weights, temperature,
                 du, dw, dg, ctx.position_scale, group_mask, ctx.precision)
@@ -500,7 +500,7 @@ def fused_field_with_grad(positions, locations, rotations, half_dims, valid, wei
     and ``scene_eval_with_grad_batched``. A profiler trace names the call
     ``field_kernels.fused_field_with_grad`` and K2's backward
     ``field_kernels.field_backward``."""
-    with record_function("field_kernels.fused_field_with_grad"):
+    with span("field_kernels.fused_field_with_grad"):
         if positions.device.type == "cuda":
             return _FusedFieldWithGrad.apply(positions, locations, rotations, half_dims,
                                              valid, weights, temperature, position_scale,
@@ -521,7 +521,7 @@ def fused_field_dir_forward(positions, directions, locations, rotations, half_di
     and ``scene_eval_dir_batched`` on CPU ones; ``group_mask`` and
     ``precision`` as in ``fused_field_with_grad``; a profiler trace names
     the call ``field_kernels.fused_field_dir_forward``."""
-    with record_function("field_kernels.fused_field_dir_forward"):
+    with span("field_kernels.fused_field_dir_forward"):
         if positions.device.type == "cuda":
             return field_dir_forward(positions, directions, locations, rotations, half_dims,
                                      valid, weights, temperature, position_scale, group_mask,

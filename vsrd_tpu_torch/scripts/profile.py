@@ -34,7 +34,14 @@ trace is written as a Chrome trace (``chrome://tracing``, Perfetto) to
 ``--trace-dir``/``trace.json``, as the JAX script writes its trace to its
 ``--trace-dir``; the field wrappers' calls are named in it
 (``field_kernels.fused_field_with_grad``, ``fused_field_dir_forward``
-and, on a card, ``field_backward``).
+and, on a card, ``field_backward``), and so is each step (``vsrd.step``,
+its step index and phase in its args) and each of its stages
+(``utils/spans.py``): ``vsrd.boxes``, ``vsrd.rays``, ``vsrd.render``,
+``vsrd.backward``, ``vsrd.adam`` and ``vsrd.report`` (the last also
+around the chunk's copy of its scalars to the host). The report gives each
+stage's host ms per step and the whole step's (``host_ms_per_step_by_stage``,
+the spans' whole host time, on a card the backward's wait for autograd's
+device thread included).
 
 The port's own switches: ``--residual-coarse`` runs the coarse pass with
 the residual field after warmup (``kernel_box_coarse=False``) instead of
@@ -55,6 +62,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..pipeline import optimize as opt
+from ..utils.spans import STAGES, STEP
 from . import bench_common as bc
 
 NUM_STEPS, WARMUP_STEPS = 3000, 1000
@@ -170,6 +178,8 @@ def main(argv=None) -> dict:
         "wall_ms_per_step": wall,
         "wall_ms_per_frame_step": wall / args.frames,
         "host_ms_per_step_by_op": {e.key: e.self_cpu_time_total / per_step for e in host},
+        "host_ms_per_step_by_stage": {e.key: e.cpu_time_total / per_step for e in events
+                                      if e.key in STAGES or e.key == STEP},
     }
     if cuda:
         report.update({
@@ -189,7 +199,10 @@ def main(argv=None) -> dict:
         print("\nby category (device ms/step):")
         for name, ms in by_category.most_common():
             print(f"  {ms:8.4f}  {name}")
-    else:
+    print("\nby stage (host ms/step):")
+    for name, ms in report["host_ms_per_step_by_stage"].items():
+        print(f"  {ms:8.4f}  {name}")
+    if not cuda:
         report["device_ms_per_step"] = "not measured"
         print("device times: not measured (cpu)\n\nper host op (host ms/step):")
         for name, ms in report["host_ms_per_step_by_op"].items():

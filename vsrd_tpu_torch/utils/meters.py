@@ -1,30 +1,13 @@
 """Progress meters and a stopwatch.
 
 Counterpart of ``vsrd_tpu/utils/meters.py`` (the original VSRD's
-``AverageMeter``/``ProgressMeter``/``StopWatch``).
+``ProgressMeter``/``StopWatch``; its ``AverageMeter`` has no caller here).
 """
 
 from __future__ import annotations
 
 import collections
 import time
-
-
-class AverageMeter:
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.sum = 0.0
-        self.count = 0
-
-    def update(self, value, count=1):
-        self.sum += value * count
-        self.count += count
-
-    @property
-    def mean(self):
-        return self.sum / max(self.count, 1)
 
 
 class EMAMeter:

@@ -2925,6 +2925,12 @@ def main():
             threads, smem, ctas = info(8, rdf)
             print(f"[build] {name}<{str(rdf).lower()}, {threads}> at N=8: {smem} bytes of "
                   f"dynamic shared memory, {ctas} CTAs of {threads} threads per SM", flush=True)
+    for rdf, precision in ((True, "default"), (True, "highest"), (False, "highest")):
+        for name, (threads, smem, ctas) in zip(("union_cotangent_kernel",
+                                                "instance_backward_kernel"),
+                                               fk.backward_info(rdf, precision)):
+            print(f"[build] {name}<{str(rdf).lower()}, {precision}>: {smem} bytes of dynamic "
+                  f"shared memory, {ctas} CTAs of {threads} threads per SM", flush=True)
 
     report, errors, nearer = {}, {}, {}
     for batched in (False, True):

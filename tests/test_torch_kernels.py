@@ -10,8 +10,8 @@ with a card and no JAX):
   compiler and driven point by point by a small harness that mirrors the
   kernels' loops, with the card's layouts (padded weight rows, strided
   residual columns) and, where a kernel takes its products from an object
-  (K1's sweep, K3's one-tangent forward, K2's weight-gradient sink), scalar
-  loops in its place; K3's math also at the main path's magnitudes (100 m)
+  (K1's sweep, K3's one-tangent forward, both stages of K2), scalar loops
+  in its place; K3's math also at the main path's magnitudes (100 m)
   against the float64 twin. What this cannot reach (shared-memory staging,
   the tensor-core layer products and weight-gradient sums, the CTA partial
   sums and their reduction) is covered by the card tests, and the choice of
@@ -71,34 +71,25 @@ using namespace vsrd;
 
 namespace {
 
-// dW_l[o][i] += hbar[o] a[i] + thbar[o] ta[i]; the bias column takes hbar[o];
-// BF16: each factor rounded to bf16 (the card's bf16 mma sink)
-template <bool BF16>
-struct HostSink {
-  float* dW;
-  void layer(int l, int in, int out, const float* a, const float* ta, const float* hbar,
-             const float* thbar) {
-    float* W = dW + layer_offset(l);
-    for (int o = 0; o < out; ++o) {
-      const float hb = operand<BF16>(hbar[o]), thb = operand<BF16>(thbar[o]);
-      for (int i = 0; i < in; ++i)
-        W[o * (in + 1) + i] += hb * operand<BF16>(a[i]) + thb * operand<BF16>(ta[i]);
-      W[o * (in + 1) + in] += hb;
-    }
-  }
-};
-
-// instance_rev's and instance_dir's layer products as scalar loops over one
-// point's staging rows (rows: the value block, trows: the tangent block,
-// which instance_rev leaves at 0); W: the instance's 1617 flattened weights
-// (BF16: rounded, and each staged operand rounded where it is multiplied, as
-// the card's bf16 mma rounds its B fragments)
+// The layer products of instance_rev, instance_dir and instance_backward as
+// scalar loops over one point's staging rows (rows: the first block's value
+// rows, trows: its tangent rows, which instance_rev leaves at 0; irows and
+// itrows: the second block's, instance_backward's layer inputs); W: the
+// instance's 1617 flattened weights (BF16: rounded, and each staged operand
+// rounded where it is multiplied, as the card's bf16 mma rounds its B
+// fragments); dW: where grad adds the weight cotangents (BF16: every factor
+// rounded, as the card's bf16 mma of the staged rows).
 template <bool BF16>
 struct HostProduct {
   const float* W;
-  float rows[kHid], c[kHid], held[kHid], trows[kHid] = {}, tc[kHid] = {};
+  float* dW = nullptr;
+  float rows[kHid], c[kHid], held[kHid], trows[kHid] = {}, tc[kHid] = {}, theld[kHid] = {};
+  float irows[kHid], itrows[kHid];
   float& at(int r) { return rows[r]; }
   float& tan_at(int r) { return trows[r]; }
+  float& in_at(int r) { return irows[r]; }
+  float& in_tan_at(int r) { return itrows[r]; }
+  void second(int) {}
   void sync() {}
   void begin(const float* bias) {
     for (int o = 0; o < kHid; ++o) {
@@ -117,22 +108,54 @@ struct HostProduct {
   }
   void reverse(int l) {
     for (int i = 0; i < kHid; ++i)
-      for (int o = 0; o < kHid; ++o)
-        c[i] += W[layer_offset(l) + o * (kHid + 1) + i] * operand<BF16>(rows[o]);
+      for (int o = 0; o < kHid; ++o) {
+        const float wv = W[layer_offset(l) + o * (kHid + 1) + i];
+        c[i] += wv * operand<BF16>(rows[o]);
+        tc[i] += wv * operand<BF16>(trows[o]);
+      }
   }
   void hold() {
-    for (int o = 0; o < kHid; ++o) held[o] = rows[o];
+    for (int o = 0; o < kHid; ++o) {
+      held[o] = rows[o];
+      theld[o] = trows[o];
+    }
   }
   void reverse0(int m) {
     for (int j = 0; j < kHid; ++j)
-      for (int o = 0; o < kHid; ++o)
-        c[j] += W[o * (kEnc + 1) + m * kHid + j] * operand<BF16>(held[o]);
+      for (int o = 0; o < kHid; ++o) {
+        const float wv = W[o * (kEnc + 1) + m * kHid + j];
+        c[j] += wv * operand<BF16>(held[o]);
+        tc[j] += wv * operand<BF16>(theld[o]);
+      }
   }
   void store() {
     for (int o = 0; o < kHid; ++o) {
       rows[o] = c[o];
       trows[o] = tc[o];
     }
+  }
+  void store_in() {
+    for (int o = 0; o < kHid; ++o) {
+      irows[o] = c[o];
+      itrows[o] = tc[o];
+    }
+  }
+  void grad(int l, int m) {
+    const int in = l == 0 ? kEnc : kHid, k0 = l == 0 ? m * kHid : 0;
+    float* G = dW + layer_offset(l);
+    for (int o = 0; o < kHid; ++o) {
+      const float hb = operand<BF16>(rows[o]), thb = operand<BF16>(trows[o]);
+      for (int i = 0; i < kHid; ++i)
+        G[o * (in + 1) + k0 + i] += hb * operand<BF16>(irows[i]) + thb * operand<BF16>(itrows[i]);
+      if (m == 0) G[o * (in + 1) + in] += hb;
+    }
+  }
+  void grad4(float hb, float thb) {
+    float* G = dW + layer_offset(4);
+    const float h = operand<BF16>(hb), th = operand<BF16>(thb);
+    for (int i = 0; i < kHid; ++i)
+      G[i] += h * operand<BF16>(irows[i]) + th * operand<BF16>(itrows[i]);
+    G[kHid] += h;
   }
 };
 
@@ -150,22 +173,18 @@ bool any_valid_of(int n, const float* valid) {
   return any;
 }
 
-// world direction v in the frame of an instance with rotation R
-void to_local(const float* v, const float* R, float t[3]) {
-  for (int c = 0; c < 3; ++c) t[c] = v[0] * R[c] + v[1] * R[3 + c] + v[2] * R[6 + c];
-}
-
 }  // namespace
 
 // K3's per-point loop: with the residual field instance_dir, the forward the
 // kernel runs, with its layer products as scalar loops; box-only box_dir.
 // Then the kernel's union (dir_union) over the point's row of logits,
 // distances and tangents. BF16: the default precision (W rounded by the
-// caller, the encoding's rounded 1 / scale).
-template <bool BF16>
+// caller). inv: the encoding's 1 / scale (a Scaler, or the rounded
+// reciprocal).
+template <bool BF16, class Inv>
 void dir_forward(int P, int N, const float* pos, const float* dirs, const float* loc,
                  const float* rot, const float* half, const float* valid, const float* W,
-                 float tau, float scale, float* u, float* w, float* u_dot) {
+                 float tau, const Inv& inv, float* u, float* w, float* u_dot) {
   const bool any_valid = any_valid_of(N, valid);
   const std::vector<float> misc = misc_blocks(N, W);
   std::vector<float> d(N), td(N);
@@ -176,12 +195,8 @@ void dir_forward(int P, int N, const float* pos, const float* dirs, const float*
       const float* v = dirs + 3 * p;
       if (W) {
         HostProduct<BF16> prod{W + i * kWeights};
-        if (BF16)
-          d[i] = instance_dir<true>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                                    misc.data() + i * kRevMisc, 1.f / scale, prod, td[i]);
-        else
-          d[i] = instance_dir<false>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                                     misc.data() + i * kRevMisc, Scaler(scale), prod, td[i]);
+        d[i] = instance_dir<BF16>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                  misc.data() + i * kRevMisc, inv, prod, td[i]);
       } else {
         float tl[3];
         d[i] = box_dir(BoxGrad(x, loc + 3 * i, rot + 9 * i, half + 3 * i), v, rot + 9 * i, tl,
@@ -193,36 +208,29 @@ void dir_forward(int P, int N, const float* pos, const float* dirs, const float*
   }
 }
 
+// K3's loop as the kernel runs it: the strict mode's encoding divides by the
+// scale (Scaler), the default mode's multiplies by the rounded 1 / scale
 extern "C" void host_dir_forward(int P, int N, const float* pos, const float* dirs,
                                  const float* loc, const float* rot, const float* half,
                                  const float* valid, const float* W, float tau, float scale,
                                  int bf16, float* u, float* w, float* u_dot) {
-  (bf16 ? dir_forward<true> : dir_forward<false>)(P, N, pos, dirs, loc, rot, half, valid, W, tau,
-                                                  scale, u, w, u_dot);
+  if (bf16)
+    dir_forward<true>(P, N, pos, dirs, loc, rot, half, valid, W, tau, 1.f / scale, u, w, u_dot);
+  else
+    dir_forward<false>(P, N, pos, dirs, loc, rot, half, valid, W, tau, Scaler(scale), u, w,
+                       u_dot);
 }
 
-// The same function in the form K3 took before its tensor-core redesign:
-// the scalar one-tangent instance_forward<1> and the online union, for the
-// comparison of the two forms' rounding (u_dot only)
-extern "C" void host_dir_forward_scalar(int P, int N, const float* pos, const float* dirs,
-                                        const float* loc, const float* rot, const float* half,
-                                        const float* valid, const float* W, float tau,
-                                        float scale, float* u_dot) {
-  const bool any_valid = any_valid_of(N, valid);
-  for (int p = 0; p < P; ++p) {
-    OnlineUnion<1> acc;
-    for (int i = 0; i < N; ++i) {
-      if (!instance_active(valid[i], any_valid)) continue;
-      float tl[1][3], td[1];
-      to_local(dirs + 3 * p, rot + 9 * i, tl[0]);
-      const float d = instance_forward<1>(pos + 3 * p, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                                          W ? W + i * kWeights : nullptr, 1.f / scale, tl, td);
-      acc.add(union_logit(d, valid[i], tau), d, td);
-    }
-    float du[1];
-    acc.finish(tau, du);
-    u_dot[p] = du[0];
-  }
+// The same function in the strict form of K2's first stage, whose encoding
+// multiplies by the rounded 1 / scale (as K1's), for the comparison of the
+// two forms' rounding (u_dot only)
+extern "C" void host_dir_forward_rounded(int P, int N, const float* pos, const float* dirs,
+                                         const float* loc, const float* rot, const float* half,
+                                         const float* valid, const float* W, float tau,
+                                         float scale, float* u_dot) {
+  std::vector<float> u(P), w((size_t)P * N);
+  dir_forward<false>(P, N, pos, dirs, loc, rot, half, valid, W, tau, 1.f / scale, u.data(),
+                     w.data(), u_dot);
 }
 
 // K1's per-point loop: with the residual field instance_rev, the sweep the
@@ -339,25 +347,19 @@ extern "C" void host_sphere_trace(int F, int R, int N, int num_iterations, const
   }
 }
 
-// K2's per-point work, summed over points in order: out [N, kParams]. As on
-// the card, the weights are copied into the Padded layout and the LayerNorm
-// residuals kept in a strided column. BF16: the default precision (W rounded
-// by the caller).
+// K2's two stages at each point, summed over points in order: out [N,
+// kParams]. Stage 1: every active instance's d and td along dg, with the
+// residual field by instance_dir with the rounded 1 / scale (box-only
+// box_dir), then union_backward; stage 2: with the residual field
+// instance_backward, its layer products and weight cotangents as scalar
+// loops and its residuals in a strided column, as on the card (box-only
+// box_backward). BF16: the default precision (W rounded by the caller).
 template <bool BF16>
 void backward(int P, int N, const float* pos, const float* dg, const float* du, const float* dw,
               const float* loc, const float* rot, const float* half, const float* valid,
               const float* W, float tau, float scale, float* out) {
-  std::vector<float> padded(W ? N * Padded::kSize : 0);
-  for (int i = 0; W && i < N; ++i)
-    for (int l = 0; l <= 4; ++l) {
-      const int in = l == 0 ? kEnc : kHid, rows = l == 4 ? 1 : kHid;
-      for (int o = 0; o < rows; ++o)
-        for (int c = 0; c <= in; ++c)
-          padded[i * Padded::kSize + Padded::at(l, o, c)] =
-              W[i * kWeights + layer_offset(l) + o * (in + 1) + c];
-    }
   constexpr int stride = 2;
-  std::vector<float> column(4 * kRes * stride);
+  std::vector<float> column(kResLayers * kRes * stride), misc = misc_blocks(N, W);
   const bool any_valid = any_valid_of(N, valid);
   std::vector<unsigned char> active(N);
   for (int i = 0; i < N; ++i) active[i] = instance_active(valid[i], any_valid);
@@ -367,20 +369,31 @@ void backward(int P, int N, const float* pos, const float* dg, const float* du, 
     const float* v = dg + 3 * p;
     for (int i = 0; i < N; ++i) {
       if (!active[i]) continue;
-      float tl[1][3], t[1];
-      to_local(v, rot + 9 * i, tl[0]);
-      d[i] = instance_forward<1, BF16>(x, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                                       W ? W + i * kWeights : nullptr, 1.f / scale, tl, t);
-      td[i] = t[0];
+      if (W) {
+        HostProduct<BF16> prod{W + i * kWeights};
+        d[i] = instance_dir<BF16>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                  misc.data() + i * kRevMisc, 1.f / scale, prod, td[i]);
+      } else {
+        float tl[3];
+        d[i] = box_dir(BoxGrad(x, loc + 3 * i, rot + 9 * i, half + 3 * i), v, rot + 9 * i, tl,
+                       td[i]);
+      }
     }
     union_backward(N, active.data(), d.data(), td.data(), valid, tau, du[p], dw + p * N, 1);
     for (int i = 0; i < N; ++i) {
       if (!active[i]) continue;
-      HostSink<BF16> sink{out + i * kParams};
       float geo[kGeo] = {};
-      instance_backward<BF16>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                              W ? padded.data() + i * Padded::kSize : nullptr, 1.f / scale, d[i],
-                              td[i], geo, sink, ColumnStore{column.data(), stride});
+      if (W) {
+        HostProduct<BF16> prod{W + i * kWeights};
+        prod.dW = out + i * kParams;
+        instance_backward<BF16>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                                misc.data() + i * kRevMisc, 1.f / scale, d[i], td[i], geo, prod,
+                                ColumnStore{column.data(), stride});
+      } else {
+        float lbar[3] = {}, tlbar[3] = {};
+        box_backward(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i, d[i], td[i], lbar, tlbar,
+                     geo);
+      }
       for (int k = 0; k < kGeo; ++k) out[i * kParams + kWeights + k] += geo[k];
     }
   }
@@ -455,7 +468,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.host_dir_forward.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32, i32] + [ptr] * 3
-    lib.host_dir_forward_scalar.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32, ptr]
+    lib.host_dir_forward_rounded.argtypes = [i32, i32] + [ptr] * 7 + [f32, f32, ptr]
     lib.host_backward.argtypes = [i32, i32] + [ptr] * 9 + [f32, f32, i32, ptr]
     lib.host_forward_rev.argtypes = [i32, i32] + [ptr] * 6 + [f32, f32, i32] + [ptr] * 3
     lib.host_sphere_trace.argtypes = [i32] * 4 + [ptr] * 8 + [f32] * 4 + [ptr] * 3
@@ -900,6 +913,60 @@ def test_batched_backward_on_a_ragged_grid_matches_the_twin_on_card(cuda):
             assert _err(a[f], b[f]) <= 2e-4, (name, f)
 
 
+def _twin_pullback_by_chunks(x, device, precision, chunk=50_000):
+    """``_twin_pullback``'s box and weight cotangents of one frame in
+    float64, summed over chunks of its points (each point's cotangents
+    depend on that point alone), so that the twin's graph stays small."""
+    sums, p = None, x["pos"].shape[0]
+    for s in range(0, p, chunk):
+        part = {k: (v[s:s + chunk] if k in ("pos", "dirs", "du", "dw", "dg") else v)
+                for k, v in x.items()}
+        grads = _twin_pullback({k: v.astype(np.float64) for k, v in part.items()}, True, device,
+                               precision)[3:]
+        sums = grads if sums is None else [a + b for a, b in zip(sums, grads)]
+    return sums
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_batched_backward_at_the_heaviest_cell_shape_matches_the_twin_on_card(cuda, precision):
+    """K4c at the shape of the benchmark's heaviest cell: F=8 frames of N=32
+    instances (one frame with none valid) and P=199,000 points, in one
+    launch, against the float64 twin frame by frame at the same precision:
+    the pullback to the box parameters and to the packed weights [N, 1617].
+    "highest": each within 2e-4 of the twin's scale. "default" (bf16
+    operands): the weights' pullback within 2e-4 in RMS relative to scale,
+    the bar of ``chip_smoke.RMS_HELD`` (an f32 and a float64 evaluation
+    round a few operands to different bf16 neighbours, which moves isolated
+    entries by 1e-3 and more), and the box pullbacks, sums over every point,
+    at least 4x nearer the rounded twin than the strict one. The second
+    stage keeps two CTAs on an SM in either precision."""
+    assert fk.backward_info(True, precision)[1][2] >= 2
+    x = _batched_inputs((32, 30, 0, 32, 24, 32, 31, 16), n=32, p=199_000, seed=7)
+    c = {k: _t(v).to(cuda) for k, v in x.items()}
+    got = [t.cpu().numpy() for t in fk.field_backward(
+        c["pos"], c["loc"], c["rot"], c["half"], c["valid"], c["w"],
+        torch.tensor(TAU, device=cuda), c["du"], c["dw"], c["dg"], precision=precision)]
+    del c
+    names = ("dloc", "drot", "dhalf", "dweights")
+
+    def rms(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.sqrt(np.mean((a - b) ** 2))) / max(float(np.abs(b).max()), 1.0)
+
+    for f in range(8):
+        frame = {k: v[f] for k, v in x.items()}
+        ref = _twin_pullback_by_chunks(frame, cuda, precision)
+        if precision == "highest":
+            for name, a, b in zip(names, got, ref):
+                assert _err(a[f], b) <= 2e-4, (name, f)
+            continue
+        strict = _twin_pullback_by_chunks(frame, cuda, "highest")
+        assert rms(got[3][f], ref[3]) <= 2e-4, ("dweights", f)
+        for name, a, b, d in zip(names[:3], got, ref, strict):
+            assert rms(a[f], d) >= 4 * rms(a[f], b), (name, f)
+
+
 def _tf32(x):
     """``cvt.rna.tf32.f32``: round to 10 mantissa bits, ties away from zero."""
     bits = np.asarray(x, np.float32).view(np.uint32)
@@ -1212,29 +1279,30 @@ def _smoke_frame_with_no_valid_instance():
 def test_host_dir_forward_holds_the_smoke_frame_with_no_valid_instance(host_lib):
     """The frame where the card's K4b reads its largest u_dot error against
     the float64 twin (chip_smoke.py, residual field), through the host build
-    of K3's math in both forms: instance_dir with scalar products (the
-    kernel's) and the scalar one-tangent instance_forward<1> with the online
-    union (K3's form before its tensor-core redesign). Their errors relative
-    to scale are printed (``pytest -s``). instance_dir, whose encoding
-    divides by the position scale (Scaler), stays within half the card's
-    2e-4 bar, leaving the other half to the tensor-core products; the other
-    form, which multiplies by the rounded 1 / scale, within the bar."""
+    of K3's math (instance_dir with scalar products) in both of its
+    encodings: the kernel's, which divides by the position scale (Scaler),
+    and the one of K2's first stage in the strict mode, which multiplies by
+    the rounded 1 / scale (as K1 does). Their errors relative to scale are
+    printed (``pytest -s``). The first stays within half the card's 2e-4
+    bar, leaving the other half to the tensor-core products; the second
+    within the bar."""
     x = _smoke_frame_with_no_valid_instance()
     p, n = x["pos"].shape[0], x["loc"].shape[0]
     chunks = [_twin64_dir({**x, "pos": x["pos"][s:s + 11_000], "dirs": x["dirs"][s:s + 11_000]},
                           True)[2] for s in range(0, p, 11_000)]
     ref = np.concatenate(chunks)
     _, _, ud = _host_dir_forward(host_lib, x, True)
-    scalar = np.zeros(p, np.float32)
-    host_lib.host_dir_forward_scalar(p, n, *map(_ptr, (x["pos"], x["dirs"], x["loc"], x["rot"],
-                                                       x["half"], x["valid"], x["w"])),
-                                     TAU, SCALE, _ptr(scalar))
-    errs = {"instance_dir": _err(ud, ref), "instance_forward<1>": _err(scalar, ref)}
+    rounded = np.zeros(p, np.float32)
+    host_lib.host_dir_forward_rounded(p, n, *map(_ptr, (x["pos"], x["dirs"], x["loc"], x["rot"],
+                                                        x["half"], x["valid"], x["w"])),
+                                      TAU, SCALE, _ptr(rounded))
+    forms = {"Scaler": ud, "rounded 1 / scale": rounded}
+    errs = {k: _err(a, ref) for k, a in forms.items()}
     tails = {k: np.quantile(np.abs(a - ref), 0.999) / max(float(np.abs(ref).max()), 1.0)
-             for k, a in (("instance_dir", ud), ("instance_forward<1>", scalar))}
+             for k, a in forms.items()}
     print("u_dot rel err against the float64 twin, chip_smoke.py's K4b frame 1 (max, 99.9th "
           "percentile): " + ", ".join(f"{k} {errs[k]:.3e}, {tails[k]:.3e}" for k in errs))
-    assert errs["instance_dir"] <= 1e-4 and errs["instance_forward<1>"] <= 2e-4
+    assert errs["Scaler"] <= 1e-4 and errs["rounded 1 / scale"] <= 2e-4
 
 
 def _dir_union_derivative(products, points=2048, n=8, seed=0):
@@ -1319,6 +1387,130 @@ def test_dir_forward_products_need_the_split_tf32_products():
     assert float(np.abs(ud1 - ud).max()) / scale > 2e-4
     assert float(np.abs(ud3 - ud).max()) / scale <= 2e-6
     assert float(np.abs(u3 - u).max()) <= 2e-6
+
+
+class _ReverseProducts(torch.autograd.Function):
+    """C = W B in float64; in the backward the input cotangent W^T G goes
+    through ``products`` on float32 operands (the backward kernel's reverse
+    products on the tensor cores), the weight cotangent G B^T stays exact."""
+
+    @staticmethod
+    def forward(ctx, w, b, products):
+        ctx.save_for_backward(w, b)
+        ctx.products = products
+        return w @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        w, b = ctx.saved_tensors
+        gb = ctx.products(w.T.numpy().astype(np.float32), g.numpy().astype(np.float32))
+        return g @ b.T, torch.from_numpy(np.asarray(gb, np.float64)), None
+
+
+def _backward_weight_cotangent(products, points=2048, n=8, seed=0):
+    """The weights' cotangent [n, 1617] of sum_p dbar d + tdbar td, d and td
+    the one-tangent forward (instance_dir's) of each instance along the unit
+    directions, in float64 by autograd, with every product that the backward
+    kernel's reverse runs on the tensor cores (W_l^T [hbar | thbar] for
+    layers 3..0, the value and tangent cotangents as two column blocks)
+    computed by ``products(A, B)`` on float32 operands; everything else,
+    the weight-cotangent sums included, exact. Inputs as ``_far_inputs``:
+    points out to 100 m along their rays, where the encoding's top frequency
+    reaches 128 pi; the cotangents dbar and tdbar heavy-tailed, as the
+    union's are."""
+    x = {k: torch.from_numpy(v.astype(np.float64)) for k, v in _far_inputs(n, points, seed).items()}
+    rng = np.random.default_rng(seed + 1)
+    dbar = torch.from_numpy(rng.standard_t(2.5, size=(n, points)) * 0.1)
+    tdbar = torch.from_numpy(rng.standard_t(2.5, size=(n, points)) * 0.1)
+    weights = x["w"].clone().requires_grad_()
+    pos, dirs = x["pos"], x["dirs"]
+    freq = torch.pi * 2.0 ** torch.arange(8, dtype=torch.float64)
+    loss = 0.0
+    for i in range(n):
+        flat = weights[i]
+        mats = [flat[:16 * 49].reshape(16, 49)]
+        mats += [flat[16 * 49 + j * 272:16 * 49 + (j + 1) * 272].reshape(16, 17) for j in range(3)]
+        last = flat[16 * 49 + 3 * 272:]
+        rot = x["rot"][i]
+        local, tl = (pos - x["loc"][i]) @ rot, dirs @ rot
+        sign = torch.sign(local)
+        sym = torch.stack([local[:, 0].abs(), local[:, 1], local[:, 2]]) / SCALE   # [3, P]
+        tsym = torch.stack([sign[:, 0] * tl[:, 0], tl[:, 1], tl[:, 2]]) / SCALE
+        phase = sym[:, None, :] * freq[None, :, None]                              # [3, 8, P]
+        tphase = tsym[:, None, :] * freq[None, :, None]
+        enc = torch.stack([phase.cos(), phase.sin()], 2).reshape(48, points)
+        tenc = torch.stack([-phase.sin() * tphase, phase.cos() * tphase], 2).reshape(48, points)
+        both = _ReverseProducts.apply(mats[0][:, :48], torch.cat([enc, tenc], 1), products)
+        h, th = both[:, :points] + mats[0][:, 48:], both[:, points:]
+        for layer in (*mats[1:], None):
+            centered = h - h.mean(0)
+            istd = 1.0 / torch.sqrt((centered ** 2).mean(0) + 1e-5)
+            y, tc = centered * istd, th - th.mean(0)
+            ty = istd * (tc - y * (y * tc).mean(0))
+            cdf = 0.5 * (1.0 + torch.erf(y / np.sqrt(2.0)))
+            a = y * cdf
+            ta = (cdf + y * torch.exp(-0.5 * y * y) / np.sqrt(2 * np.pi)) * ty
+            if layer is None:
+                break
+            both = _ReverseProducts.apply(layer[:, :16], torch.cat([a, ta], 1), products)
+            h, th = both[:, :points] + layer[:, 16:], both[:, points:]
+        sig = torch.sigmoid(last[:16] @ a + last[16] - 1.0)
+        d = sig          # the box's part carries no product
+        td = sig * (1.0 - sig) * (last[:16] @ ta)
+        loss = loss + (dbar[i] * d).sum() + (tdbar[i] * td).sum()
+    return torch.autograd.grad(loss, weights)[0].numpy()
+
+
+def test_backward_reverse_products_need_the_split_tf32_products():
+    """The backward kernel's reverse products W_l^T [hbar | thbar] (the value
+    and tangent cotangents as two column blocks, layer 0's one coordinate at
+    a time), emulated in numpy at the main path's magnitudes
+    (``_backward_weight_cotangent``): one TF32 product per term moves the
+    weights' cotangent by more than 2e-4 of its scale, the 3xTF32 split
+    (big*big + big*small + small*big) by at most 2e-6. Products of TF32
+    operands are exact in f32, and the sums run in float64, so that what is
+    measured is the operands' rounding alone. Then the bf16 form, from the
+    lanes' registers by the PTX ISA's fragment layout (``_warp_product_bf16``):
+    the reverse W_l^T [hbar | thbar] over a warp's 32 value and 32 tangent
+    columns, layer 0's W_0^T of one coordinate, and the per-warp weight
+    cotangent [hbar | thbar] [a | ta]^T over the same 64 columns each read
+    every element of both operands exactly once, rounded to bf16, so each
+    product is bf16(A) bf16(B) with exact products."""
+    f64 = lambda a, b: a.astype(np.float64) @ b.astype(np.float64)  # noqa: E731
+
+    def one(a, b):
+        return f64(_tf32(a), _tf32(b))
+
+    def three(a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        return f64(_tf32(a - ab), bb) + f64(ab, _tf32(b - bb)) + f64(ab, bb)
+
+    exact = _backward_weight_cotangent(f64)
+    scale = max(float(np.abs(exact).max()), 1e-30)
+    assert float(np.abs(_backward_weight_cotangent(one) - exact).max()) / scale > 2e-4
+    assert float(np.abs(_backward_weight_cotangent(three) - exact).max()) / scale <= 2e-6
+
+    rng = np.random.default_rng(1)
+    w0 = (rng.normal(size=(16, 49)) * 0.3).astype(np.float32)     # layer 0, bias last
+    w = (rng.normal(size=(16, 17)) * 0.3).astype(np.float32)      # a hidden layer
+    cot = (rng.standard_t(2.5, size=(16, 64)) * 1e-3).astype(np.float32)  # [hbar | thbar]
+    act = np.tanh(rng.normal(size=(16, 64))).astype(np.float32)   # [a | ta]
+    m = 2
+    cases = {
+        "reverse W^T [hbar | thbar]": (lambda r, k: w[k, r], lambda r, n: cot[r, n], 16, 8,
+                                       w[:, :16].T, cot),
+        "layer 0's W_0^T of coordinate m": (lambda r, k: w0[k, 16 * m + r],
+                                            lambda r, n: cot[r, n], 16, 8,
+                                            w0[:, 16 * m:16 * m + 16].T, cot),
+        "weight cotangent [hbar | thbar] [a | ta]^T": (lambda r, k: cot[r, k],
+                                                       lambda k, n: act[n, k], 64, 2,
+                                                       cot, act.T),
+    }
+    for name, (a_of, b_of, k, nt, a_mat, b_mat) in cases.items():
+        c, uses_a, uses_b = _warp_product_bf16(a_of, b_of, k, nt)
+        assert (uses_a == 1).all() and (uses_b == 1).all(), name
+        want = _bf16(a_mat).astype(np.float64) @ _bf16(b_mat).astype(np.float64)
+        np.testing.assert_allclose(c, want, rtol=1e-12, atol=1e-18, err_msg=name)
 
 
 def _field_args(x, device, use_rdf=True):

@@ -79,7 +79,6 @@
 namespace vsrd {
 
 constexpr int kDirThreadsRdf = 256;  // a CTA's threads with the residual field, while they fit
-constexpr int kDirRowStride = 72;    // staging row: 32 + 32 points + 8
 constexpr int kDirStage = kHid * kDirRowStride;
 constexpr int kDirFragWords = kFwdBlocks * 256;
 
@@ -97,39 +96,6 @@ struct DirLayout {
     return ((rdf ? kFixed : 0) + 16 * (size_t)n + 6 * T + 3 * (size_t)T * (n + 1)) *
            sizeof(float);
   }
-};
-
-// The layer products of instance_dir (field_common.cuh) on the tensor cores:
-// a warp's C [16 x 64] = A [16 x K] B [K x 64] over its own 32 points' value
-// columns (n-tiles 0-3) and tangent columns (n-tiles 4-7), A from the
-// instance's fragment blocks, B from the warp's staging rows (row k at act +
-// k * kDirRowStride). Every lane calls every method, so the warp stays
-// converged around each mma. BF16: the default precision, one bf16 mma per
-// product (warp_product.cuh); the bias rows (misc) are rounded where they
-// are staged.
-template <bool BF16>
-struct WarpDirProduct {
-  const unsigned* frag;
-  float* act;
-  int lane;
-  float c[8][4];
-
-  __device__ __forceinline__ WarpDirProduct(const unsigned* f, float* a, int l)
-      : frag(f), act(a), lane(l) {}
-  __device__ __forceinline__ float& at(int row) { return act[row * kDirRowStride + lane]; }
-  __device__ __forceinline__ float& tan_at(int row) {
-    return act[row * kDirRowStride + 32 + lane];
-  }
-  __device__ __forceinline__ void sync() { __syncwarp(); }
-  __device__ __forceinline__ void begin(const float* bias) {
-    init_acc<4>(c, bias, lane);
-    init_acc<4>(c + 4, nullptr, lane);
-  }
-  __device__ __forceinline__ void forward(int l, int m) {
-    warp_product<2, 8, kDirRowStride, BF16>(frag, l == 0 ? fwd_block(0, 2 * m) : fwd_block(l, 0),
-                                            act, lane, c);
-  }
-  __device__ __forceinline__ void store() { store_acc<8, kDirRowStride>(act, c, lane); }
 };
 
 // Grid (ceil(P / T), F), T threads a CTA; see the note at the top of the file.

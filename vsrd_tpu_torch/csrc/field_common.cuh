@@ -12,14 +12,15 @@
 //   hypernetwork output: 1617 floats, layer l an [out][in + 1] row-major
 //   block with the bias last.
 //
-// The functions here carry tangents forward (K of them, seeded in the
-// instance frame; K2's stage 1), run the value forward and its first-order
-// reverse with respect to the position (K1/K4a), run the value forward with
-// one tangent along the ray as a second column block of its layer products
-// (K3/K4b), and, for the backward kernel, run the reverse sweep of the
-// one-tangent forward; the sphere tracer's march (sphere_trace.cu) steps
-// rays by the value forward alone. The per-point work is scalar f32 per
-// thread, and the functions compile for the host too (without nvcc), so that the math is
+// The functions here run the value forward (the sphere tracer's march,
+// sphere_trace.cu), the value forward and its first-order reverse with
+// respect to the position (K1/K4a), the value forward with one tangent along
+// a direction as a second column block of its layer products (K3/K4b and
+// K2/K4c's first stage), and the reverse sweep of that one-tangent forward
+// (K2/K4c's second stage). The per-point work is scalar f32 per thread; the
+// layer products of the field kernels go through a product object (on the
+// card warp-wide mma.sync, warp_product.cuh), and the functions compile for
+// the host too (without nvcc, with scalar products), so that the math is
 // checked against the PyTorch twin on a machine without a GPU
 // (tests/test_torch_kernels.py).
 #pragma once
@@ -44,11 +45,6 @@ constexpr int kWeights = 1617;    // flattened MLP weights per instance
 constexpr int kGeo = 15;          // dloc 3 + drot 9 + dhalf 3
 constexpr int kParams = kWeights + kGeo;  // per-instance cotangent row
 constexpr int kGroup = 8;         // instances whose weights share memory
-
-// array extent for K tangents: K = 0 (the value forward alone) keeps one
-// unused slot, since C++ has no arrays of extent 0
-template <int K>
-constexpr int kTangentSlots = K > 0 ? K : 1;
 
 // offset of layer l's [out][in + 1] block in the flattened weights
 VSRD_HD constexpr int layer_offset(int l) {
@@ -109,68 +105,6 @@ VSRD_HD float operand(float x) {
   return BF16 ? bf16_round(x) : x;
 }
 
-// Box part of one instance: geometry and its tangents.
-template <int K>
-struct BoxEval {
-  float rel[3], l[3], s[3], q[3], r[3];
-  float o, d;
-  int jmax;
-  float gate;
-  float tq[kTangentSlots<K>][3], to[kTangentSlots<K>], td[kTangentSlots<K>];
-
-  // tl[j][c]: d local_c along tangent j
-  VSRD_HD BoxEval(const float x[3], const float* loc, const float* rot,
-                  const float* half, const float (*tl)[3]) {
-    for (int k = 0; k < 3; ++k) rel[k] = x[k] - loc[k];
-    for (int c = 0; c < 3; ++c) {
-      l[c] = rel[0] * rot[c] + rel[1] * rot[3 + c] + rel[2] * rot[6 + c];
-      s[c] = signf(l[c]);
-      q[c] = fabsf(l[c]) - half[c];
-      r[c] = fmaxf(q[c], 0.f);
-    }
-    o = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + 1e-6f);
-    // max face with the JAX kernels' tie-break
-    const int j01 = q[0] > q[1] ? 0 : 1;
-    jmax = q[2] > q[j01] ? 2 : j01;
-    gate = q[jmax] < 0.f ? 1.f : 0.f;
-    d = o - fmaxf(-q[jmax], 0.f);
-    for (int j = 0; j < K; ++j) {
-      for (int c = 0; c < 3; ++c) tq[j][c] = s[c] * tl[j][c];
-      to[j] = (r[0] * tq[j][0] + r[1] * tq[j][1] + r[2] * tq[j][2]) / o;
-      td[j] = to[j] + gate * tq[j][jmax];
-    }
-  }
-};
-
-// LayerNorm (no affine) of h with tangents th; y = (h - mean) istd and
-// ty = istd (tc - y P), tc = th - mean(th), P = mean(y tc).
-template <int K>
-VSRD_HD void layer_norm_fwd(const float h[kHid], const float (*th)[kHid], float y[kHid],
-                            float (*tc)[kHid], float (*ty)[kHid], float& istd) {
-  float mean = 0.f;
-  for (int i = 0; i < kHid; ++i) mean += h[i];
-  mean *= 1.f / kHid;
-  float var = 0.f;
-  for (int i = 0; i < kHid; ++i) {
-    y[i] = h[i] - mean;
-    var += y[i] * y[i];
-  }
-  istd = 1.f / sqrtf(var * (1.f / kHid) + 1e-5f);
-  for (int i = 0; i < kHid; ++i) y[i] *= istd;
-  for (int j = 0; j < K; ++j) {
-    float tmean = 0.f;
-    for (int i = 0; i < kHid; ++i) tmean += th[j][i];
-    tmean *= 1.f / kHid;
-    float p = 0.f;
-    for (int i = 0; i < kHid; ++i) {
-      tc[j][i] = th[j][i] - tmean;
-      p += y[i] * tc[j][i];
-    }
-    p *= 1.f / kHid;
-    for (int i = 0; i < kHid; ++i) ty[j][i] = istd * (tc[j][i] - y[i] * p);
-  }
-}
-
 // Encoding of one (dim, k) pair: value (cos, sin) of phase f*sym.
 VSRD_HD void enc_pair(float sym, int k, float& cs, float& sn) {
 #if defined(__CUDACC__)
@@ -222,109 +156,10 @@ struct Scaler {
   VSRD_HD float operator()(float x) const { return fmaf(x, hi, x * lo); }
 };
 
-// x / scale by the rounded reciprocal (K1 and K2's encoding) or by Scaler
-// (K3's and the sphere tracer's)
+// x / scale by the rounded reciprocal (K1 and K2's encoding, K3's in the
+// default precision) or by Scaler (K3's strict one and the sphere tracer's)
 VSRD_HD float scaled(float inv_scale, float x) { return x * inv_scale; }
 VSRD_HD float scaled(const Scaler& inv, float x) { return inv(x); }
-
-// One instance's distance d and K directional derivatives td, for the
-// tangent seeds tl (instance frame). W: the instance's 1617 weights, or
-// nullptr for the box-only phase. K = 0 is the value forward alone (the
-// sphere tracer's), with tl and td unread. inv: the encoding's 1 / scale,
-// a float or a Scaler. BF16: the default precision (W rounded, see above;
-// the encoding enc_dim_jax), which K2's recompute of the JAX body
-// _group_dir_fwd_res runs; the sphere tracer stays strict, as the JAX
-// package's photometric field does.
-template <int K, bool BF16 = false, class Inv>
-VSRD_HD float instance_forward(const float x[3], const float* loc, const float* rot,
-                               const float* half, const float* W, const Inv& inv,
-                               const float (*tl)[3], float* td) {
-  constexpr int KS = kTangentSlots<K>;
-  BoxEval<K> box(x, loc, rot, half, tl);
-  float d = box.d;
-  for (int j = 0; j < K; ++j) td[j] = box.td[j];
-  if (W == nullptr) return d;
-
-  const float sym[3] = {scaled(inv, fabsf(box.l[0])), scaled(inv, box.l[1]),
-                        scaled(inv, box.l[2])};
-  float tsym[KS][3];
-  for (int j = 0; j < K; ++j) {
-    tsym[j][0] = scaled(inv, box.s[0] * tl[j][0]);
-    tsym[j][1] = scaled(inv, tl[j][1]);
-    tsym[j][2] = scaled(inv, tl[j][2]);
-  }
-
-  // layer 0: encoding channels are produced and consumed one pair at a time
-  float h[kHid], th[KS][kHid];
-  for (int o = 0; o < kHid; ++o) {
-    h[o] = W[o * (kEnc + 1) + kEnc];
-    for (int j = 0; j < K; ++j) th[j][o] = 0.f;
-  }
-  for (int dim = 0; dim < 3; ++dim) {
-    float e[2 * kFreq];
-    if (BF16) enc_dim_jax(sym[dim], e);
-    for (int k = 0; k < kFreq; ++k) {
-      float cs, sn;
-      if (BF16) {
-        cs = e[2 * k];
-        sn = e[2 * k + 1];
-      } else {
-        enc_pair(sym[dim], k, cs, sn);
-      }
-      const float f = frequency(k);
-      float txc[KS], txs[KS];
-      for (int j = 0; j < K; ++j) {
-        const float tf = f * tsym[j][dim];
-        txc[j] = operand<BF16>(-sn * tf);
-        txs[j] = operand<BF16>(cs * tf);
-      }
-      const int c = dim * 2 * kFreq + 2 * k;
-      const float ocs = operand<BF16>(cs), osn = operand<BF16>(sn);
-      for (int o = 0; o < kHid; ++o) {
-        const float wc = W[o * (kEnc + 1) + c], ws = W[o * (kEnc + 1) + c + 1];
-        h[o] += wc * ocs + ws * osn;
-        for (int j = 0; j < K; ++j) th[j][o] += wc * txc[j] + ws * txs[j];
-      }
-    }
-  }
-
-  // layers 1..4: LayerNorm + GELU, then Linear
-  float raw = 0.f, traw[KS];
-  for (int l = 1; l <= 4; ++l) {
-    float y[kHid], tc[KS][kHid], ty[KS][kHid], istd;
-    layer_norm_fwd<K>(h, th, y, tc, ty, istd);
-    float a[kHid], ta[KS][kHid];
-    for (int i = 0; i < kHid; ++i) {
-      const Gelu g(y[i]);
-      a[i] = operand<BF16>(y[i] * g.cdf);
-      const float g1 = g.cdf + y[i] * g.pdf;
-      for (int j = 0; j < K; ++j) ta[j][i] = operand<BF16>(g1 * ty[j][i]);
-    }
-    const float* Wl = W + layer_offset(l);
-    const int out = l < 4 ? kHid : 1;
-    for (int o = 0; o < out; ++o) {
-      float acc = Wl[o * (kHid + 1) + kHid];
-      float tacc[KS];
-      for (int j = 0; j < K; ++j) tacc[j] = 0.f;
-      for (int i = 0; i < kHid; ++i) {
-        const float wv = Wl[o * (kHid + 1) + i];
-        acc += wv * a[i];
-        for (int j = 0; j < K; ++j) tacc[j] += wv * ta[j][i];
-      }
-      if (l < 4) {
-        h[o] = acc;
-        for (int j = 0; j < K; ++j) th[j][o] = tacc[j];
-      } else {
-        raw = acc;
-        for (int j = 0; j < K; ++j) traw[j] = tacc[j];
-      }
-    }
-  }
-  const float sig = sigmoidf(raw - 1.f);
-  const float dsig = sig * (1.f - sig);
-  for (int j = 0; j < K; ++j) td[j] += dsig * traw[j];
-  return d + sig;
-}
 
 // Whether instance i takes part in the union: invalid instances have
 // softmin weight exactly 0 under the f32 logit mask (valid - 1) * 1e30,
@@ -432,8 +267,9 @@ struct BoxGrad {
       r[c] = fmaxf(q[c], 0.f);
     }
     const float o = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + 1e-6f);
-    // the max face with the JAX kernels' tie-break, as BoxEval, by selects
-    // (an array indexed by it would go to local memory on the card)
+    // the max face with the JAX kernels' tie-break (q[0] wins ties with
+    // q[1], both lose them to q[2]), by selects (an array indexed by it
+    // would go to local memory on the card)
     const bool first = q[0] > q[1];
     const float q01 = first ? q[0] : q[1];
     const bool third = q[2] > q01;
@@ -481,7 +317,7 @@ VSRD_HD void enc_dim(float sym, float e[2 * kFreq]) {
 }
 
 // a = GELU(y) = y Phi(y), y = LayerNorm(h) (no affine); returns istd, and
-// Phi(y) in cdf. The primal arithmetic of layer_norm_fwd.
+// Phi(y) in cdf.
 VSRD_HD float ln_gelu(const float h[kHid], float y[kHid], float a[kHid], float cdf[kHid]) {
   float mean = 0.f;
   for (int i = 0; i < kHid; ++i) mean += h[i];
@@ -697,16 +533,17 @@ VSRD_HD float instance_rev(const float x[3], const float* loc, const float* rot,
   return box.d + sig;
 }
 
-// ---- The coarse forward's one-tangent form (K3/K4b) ----
+// ---- The one-tangent form (K3/K4b, K2/K4c's first stage) ----
 //
-// d_i and its derivative td_i along the point's world direction v, forward
-// mode: the tangent rides beside the value through every layer, so the
-// layer products take the value and the tangent as two column blocks of one
-// product and nothing is kept for a reverse. The union then weighs the
-// tangents once the max logit is known (dir_union). instance_dir is written
-// once; its layer products go through a product object, on the card
-// warp-wide mma.sync in 3xTF32 over both blocks (dir_forward.cu), on the
-// host scalar loops (tests/test_torch_kernels.py).
+// d_i and its derivative td_i along a world direction v (the point's ray in
+// K3, the cotangent dg of grad_x u in K2), forward mode: the tangent rides
+// beside the value through every layer, so the layer products take the
+// value and the tangent as two column blocks of one product. K3's union
+// then weighs the tangents once the max logit is known (dir_union), K2's
+// gives each instance its cotangents (union_backward). instance_dir is
+// written once; its layer products go through a product object, on the card
+// warp-wide mma.sync over both blocks (warp_product.cuh), on the host scalar
+// loops (tests/test_torch_kernels.py).
 
 // Box value d and its derivative td = <grad_x d, v> along the world
 // direction v, from the local gradient: td = <gl, R^T v>. tl = R^T v.
@@ -717,11 +554,11 @@ VSRD_HD float box_dir(const BoxGrad& box, const float v[3], const float* rot, fl
   return box.d;
 }
 
-// a = GELU(y), y = LayerNorm(h) (no affine), and its tangent ta along th:
-// ty = istd (tc - y mean(y tc)), tc = th - mean(th), ta = (Phi(y) + y phi(y)) ty.
-// The arithmetic of layer_norm_fwd<1> and Gelu, once for both.
-VSRD_HD void ln_gelu_dir(const float h[kHid], const float th[kHid], float a[kHid],
-                         float ta[kHid]) {
+// y = LayerNorm(h) (no affine) and the tangent's centred tc = th - mean(th)
+// along th; returns istd and sets p = mean(y tc). The tangent of y is
+// ty = istd (tc - y p).
+VSRD_HD float ln_dir(const float h[kHid], const float th[kHid], float y[kHid], float tc[kHid],
+                     float& p) {
   float mean = 0.f, tmean = 0.f;
   for (int i = 0; i < kHid; ++i) {
     mean += h[i];
@@ -729,58 +566,89 @@ VSRD_HD void ln_gelu_dir(const float h[kHid], const float th[kHid], float a[kHid
   }
   mean *= 1.f / kHid;
   tmean *= 1.f / kHid;
-  float y[kHid], tc[kHid], var = 0.f;
+  float var = 0.f;
   for (int i = 0; i < kHid; ++i) {
     y[i] = h[i] - mean;
     tc[i] = th[i] - tmean;
     var += y[i] * y[i];
   }
   const float istd = 1.f / sqrtf(var * (1.f / kHid) + 1e-5f);
-  float p = 0.f;
+  p = 0.f;
   for (int i = 0; i < kHid; ++i) {
     y[i] *= istd;
     p += y[i] * tc[i];
   }
   p *= 1.f / kHid;
-  for (int i = 0; i < kHid; ++i) {
-    const float cdf = Gelu(y[i]).cdf;
-    a[i] = y[i] * cdf;
-    ta[i] = (cdf + y[i] * ln_pdf(y[i])) * istd * (tc[i] - y[i] * p);
-  }
+  return istd;
 }
 
-// One instance's distance d and its derivative td along the world direction
-// v at the point x with the residual field. misc: the instance's kRevMisc
-// block (instance_rev's). inv: the encoding's 1 / scale, a Scaler in the
-// strict mode, the rounded reciprocal (a float, as the JAX body) in the
-// default mode BF16, which also encodes by enc_dim_jax and rounds layer
-// 4's operands (the product object rounds the others). The layer products
-// of layers 0-3 go through prod, which holds their accumulator C (16 rows, a
-// value and a tangent block) and reads their operand B from 16 staging rows
-// of both blocks; prod.at(r) and prod.tan_at(r) are this point's value and
-// tangent entries of row r:
+// One element of a = GELU(y) and its tangent ta = g1 ty, with g1 = Phi(y) +
+// y phi(y) and ty = istd (tc - y p), from ln_dir's outputs and cdf =
+// Phi(y); g2 = phi(y) (2 - y^2), the derivative of g1, for the reverse
+// (backward_ln_gelu_dir).
+struct GeluDir {
+  float g1, ty, a, ta;
+  VSRD_HD GeluDir(float y, float tc, float istd, float p, float cdf) {
+    g1 = cdf + y * ln_pdf(y);
+    ty = istd * (tc - y * p);
+    a = y * cdf;
+    ta = g1 * ty;
+  }
+  VSRD_HD static float g2(float y) { return ln_pdf(y) * (2.f - y * y); }
+};
+
+// The encoding's 16 channels of one coordinate for the one-tangent forms,
+// by the encoding's 1 / scale: in the default precision (BF16) the JAX
+// package's fast encoding (enc_dim_jax); in the strict one, with the exact
+// 1 / scale (a Scaler, K3's) enc_dim<2>, with the rounded reciprocal (a
+// float, K2's) the float32 twin's own arithmetic, cos and sin of sym
+// fl(pi 2^k) (enc_pair). enc_dim<2> is nearer float64, but a frame with no
+// valid instance weighs each instance's error by up to |1 + (u - d) / tau|,
+// and the card tests hold K2 to the float32 twin at 2e-4 of scale: in the
+// masked batched test's frame with no valid instance at N = 20, drot reads
+// 2.1e-4 off that twin with enc_dim<2> and 1.2e-4 with enc_pair, the twin
+// itself 2.6e-4 off float64 (PERF.md).
+template <bool BF16>
+VSRD_HD void enc_fwd(const Scaler&, float sym, float e[2 * kFreq]) {
+  if (BF16)
+    enc_dim_jax(sym, e);
+  else
+    enc_dim<2>(sym, e);
+}
+
+template <bool BF16>
+VSRD_HD void enc_fwd(float, float sym, float e[2 * kFreq]) {
+  if (BF16) {
+    enc_dim_jax(sym, e);
+    return;
+  }
+  for (int k = 0; k < kFreq; ++k) enc_pair(sym, k, e[2 * k], e[2 * k + 1]);
+}
+
+// The residual field's MLP with one tangent (instance_dir's and
+// instance_backward's forward) from the encoding's inputs sym and their
+// tangents tsym: raw and traw, the last layer's output and its tangent.
+// misc: the instance's kRevMisc block; inv: the encoding's 1 / scale
+// (enc_fwd). BF16: the default precision, layer 4's operands rounded here
+// (the product object rounds the others). The layer products of layers 0-3
+// go through prod, which holds their accumulator C (16 rows, a value and a
+// tangent block) and reads their operand B from 16 staging rows of both
+// blocks; prod.at(r) and prod.tan_at(r) are this point's value and tangent
+// entries of row r:
 //   begin(bias)   the value block of C = the bias rows, the tangent block 0
 //   forward(l, m) C += W_l B; for l = 0, W_0's 16 columns of coordinate m
 //   store()       the staging rows = C
 //   sync()        orders a point's writes of the rows before the product's
 //                 reads and back (on the card a warp's points share them)
-// Every call makes the same sequence of product calls, as the card's
-// warp-wide mma needs.
+// Each LayerNorm's outputs (ln_dir) and Phi of layers l = 1..3 go to
+// keep(l, y, tc, cdf, istd, p); layer 4's stay in y, tc, cdf, istd and p.
 #if defined(__CUDACC__)
 #pragma nv_exec_check_disable
 #endif
-template <bool BF16, class Prod, class Inv>
-VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
-                           const float* rot, const float* half, const float* misc,
-                           const Inv& inv, Prod& prod, float& td) {
-  const BoxGrad box(x, loc, rot, half);
-  float tl[3];
-  const float d = box_dir(box, v, rot, tl, td);
-  const float sym[3] = {scaled(inv, fabsf(box.l[0])), scaled(inv, box.l[1]),
-                        scaled(inv, box.l[2])};
-  const float tsym[3] = {scaled(inv, box.s[0] * tl[0]), scaled(inv, tl[1]),
-                         scaled(inv, tl[2])};
-
+template <bool BF16, class Inv, class Prod, class Keep>
+VSRD_HD void mlp_dir(const float sym[3], const float tsym[3], const float* misc, const Inv& inv,
+                     Prod& prod, const Keep& keep, float y[kHid], float tc[kHid],
+                     float cdf[kHid], float& istd, float& p, float& raw, float& traw) {
   // layer 0, one coordinate's 16 encoding channels (two k-steps) at a time;
   // the tangent of (cos, sin)(pi 2^k s) is pi 2^k ds (-sin, cos): no new
   // transcendental
@@ -788,10 +656,7 @@ VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
   prod.begin(misc);
   VSRD_UNROLL
   for (int m = 0; m < 3; ++m) {
-    if (BF16)
-      enc_dim_jax(sym[m], e);
-    else
-      enc_dim<2>(sym[m], e);
+    enc_fwd<BF16>(inv, sym[m], e);
     for (int k = 0; k < kFreq; ++k) {
       const float f = frequency(k) * tsym[m];
       prod.at(2 * k) = e[2 * k];
@@ -807,19 +672,23 @@ VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
   prod.sync();
 
   // layers 1-4: LayerNorm + GELU with its tangent per point, then the product
-  float raw = misc[4 * kHid + kHid], traw = 0.f;
+  raw = misc[4 * kHid + kHid];
+  traw = 0.f;
   VSRD_UNROLL
   for (int l = 1; l <= 4; ++l) {
-    float h[kHid], th[kHid], a[kHid], ta[kHid];
+    float h[kHid], th[kHid];
     for (int i = 0; i < kHid; ++i) {
       h[i] = prod.at(i);
       th[i] = prod.tan_at(i);
     }
-    ln_gelu_dir(h, th, a, ta);
+    istd = ln_dir(h, th, y, tc, p);
+    for (int i = 0; i < kHid; ++i) cdf[i] = Gelu(y[i]).cdf;
     if (l < 4) {
+      keep(l, y, tc, cdf, istd, p);
       for (int i = 0; i < kHid; ++i) {
-        prod.at(i) = a[i];
-        prod.tan_at(i) = ta[i];
+        const GeluDir g(y[i], tc[i], istd, p, cdf[i]);
+        prod.at(i) = g.a;
+        prod.tan_at(i) = g.ta;
       }
       prod.sync();
       prod.begin(misc + l * kHid);
@@ -829,11 +698,39 @@ VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
       prod.sync();
     } else {
       for (int i = 0; i < kHid; ++i) {
-        raw += misc[4 * kHid + i] * operand<BF16>(a[i]);
-        traw += misc[4 * kHid + i] * operand<BF16>(ta[i]);
+        const GeluDir g(y[i], tc[i], istd, p, cdf[i]);
+        raw += misc[4 * kHid + i] * operand<BF16>(g.a);
+        traw += misc[4 * kHid + i] * operand<BF16>(g.ta);
       }
     }
   }
+}
+
+// One instance's distance d and its derivative td along the world direction
+// v at the point x with the residual field. misc: the instance's kRevMisc
+// block (instance_rev's). inv: the encoding's 1 / scale, a Scaler (K3's
+// strict mode) or the rounded reciprocal (a float, as the JAX body: K3's
+// default mode, K2's first stage). BF16: the default precision, which also
+// encodes by enc_dim_jax. prod: mlp_dir's product object. Every call makes
+// the same sequence of product calls, as the card's warp-wide mma needs.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <bool BF16, class Prod, class Inv>
+VSRD_HD float instance_dir(const float x[3], const float v[3], const float* loc,
+                           const float* rot, const float* half, const float* misc,
+                           const Inv& inv, Prod& prod, float& td) {
+  const BoxGrad box(x, loc, rot, half);
+  float tl[3];
+  const float d = box_dir(box, v, rot, tl, td);
+  const float sym[3] = {scaled(inv, fabsf(box.l[0])), scaled(inv, box.l[1]),
+                        scaled(inv, box.l[2])};
+  const float tsym[3] = {scaled(inv, box.s[0] * tl[0]), scaled(inv, tl[1]),
+                         scaled(inv, tl[2])};
+  float y[kHid], tc[kHid], cdf[kHid], istd, p, raw, traw;
+  mlp_dir<BF16>(sym, tsym, misc, inv, prod,
+                [](int, const float*, const float*, const float*, float, float) {}, y, tc, cdf,
+                istd, p, raw, traw);
   const float sig = sigmoidf(raw - 1.f);
   td += sig * (1.f - sig) * traw;
   return d + sig;
@@ -870,7 +767,7 @@ VSRD_HD float dir_union(int n, const float* valid, bool any_valid, float* l, con
   return u;
 }
 
-// Softmin-union cotangents at one point (stage A of the backward).
+// Softmin-union cotangents at one point (the backward's first stage).
 // Given each instance's d, its derivative td along the point's direction,
 // and the cotangents du, dw[i] of u and w, and 1 on u_dot = <dg, grad u>,
 // overwrites d[i] with d_bar[i] and td[i] with td_bar[i]. Inactive
@@ -913,277 +810,318 @@ VSRD_HD void union_backward(int n, const unsigned char* active, float* d, float*
   }
 }
 
-// Where the reverse sweep keeps the forward's LayerNorm residuals of
-// layers 1..4 (index l - 1): y[16], tc[16], istd and P = mean(y tc), kRes
+// ---- The backward's reverse sweep (K2/K4c's second stage) ----
+//
+// The reverse of instance_dir's one-tangent forward along the direction v,
+// with cotangents dbar on d and tdbar on td (the JAX body _group_dir_bwd):
+// the forward runs again, keeping each LayerNorm's residuals, then each
+// layer's value and tangent cotangents are the two column blocks of ONE
+// product with W_l^T, and the weight cotangents dW_l = sum_p hbar a^T +
+// thbar ta^T go through the same product object: on the card warp-wide
+// mma.sync (fused_backward.cu), on the host scalar loops
+// (tests/test_torch_kernels.py).
+
+// Where the sweep keeps the forward's LayerNorm residuals of layers 1..3
+// (index l - 1): y[16], tc[16], Phi(y)[16], istd and p = mean(y tc), kRes
 // values per layer, at col[(l * kRes + e) * stride]: on the card a thread's
-// own column of a shared-memory block (stride = threads, so neighbouring
-// threads hit neighbouring banks).
-constexpr int kRes = 2 * kHid + 2;
+// own column of its warp's shared-memory block (stride = 32, so
+// neighbouring threads hit neighbouring banks). Keeping Phi spares the
+// reverse an erf per element. Layer 4's stay in registers, since its
+// reverse follows at once.
+constexpr int kRes = 3 * kHid + 2;
+constexpr int kResLayers = 3;
 
 struct ColumnStore {
   float* col;
   int stride;
   VSRD_HD float& y(int l, int i) const { return col[(l * kRes + i) * stride]; }
   VSRD_HD float& tc(int l, int i) const { return col[(l * kRes + kHid + i) * stride]; }
-  VSRD_HD float& istd(int l) const { return col[(l * kRes + 2 * kHid) * stride]; }
-  VSRD_HD float& p(int l) const { return col[(l * kRes + 2 * kHid + 1) * stride]; }
+  VSRD_HD float& cdf(int l, int i) const { return col[(l * kRes + 2 * kHid + i) * stride]; }
+  VSRD_HD float& istd(int l) const { return col[(l * kRes + 3 * kHid) * stride]; }
+  VSRD_HD float& p(int l) const { return col[(l * kRes + 3 * kHid + 1) * stride]; }
 };
 
-// The weights instance_backward reads: the hypernetwork's 1617 in rows that
-// start 16 bytes apart (52 floats for layer 0, 20 for the others), so that a
-// row loads four at a time from shared memory; weight (o, i) of layer l at
-// Padded::at(l, o, i), the bias at i = in.
-struct Padded {
-  static constexpr int kSize = kHid * 52 + 3 * kHid * 20 + 20;
-  VSRD_HD static constexpr int row(int l) { return l == 0 ? 52 : 20; }
-  VSRD_HD static constexpr int offset(int l) {
-    return l == 0 ? 0 : kHid * 52 + (l - 1) * kHid * 20;
+// Reverse of a = GELU(LayerNorm(h)) and its tangent ta along th (ln_dir,
+// GeluDir) from the cotangents abar of a and tabar of ta: hbar and thbar of
+// h and th. y, tc, istd, p: ln_dir's outputs; g1, ty: each element's
+// GeluDir factors. The tangent transposes like the primal; the primal input
+// also picks up the second-order terms through istd and y.
+VSRD_HD void backward_ln_gelu_dir(const float y[kHid], const float tc[kHid], float istd,
+                                  float p, const float g1[kHid], const float ty[kHid],
+                                  const float abar[kHid], const float tabar[kHid],
+                                  float hbar[kHid], float thbar[kHid]) {
+  float ybar[kHid], tybar[kHid];
+  for (int i = 0; i < kHid; ++i) {
+    ybar[i] = abar[i] * g1[i] + tabar[i] * ty[i] * GeluDir::g2(y[i]);
+    tybar[i] = tabar[i] * g1[i];
   }
-  VSRD_HD static constexpr int at(int l, int o, int i) { return offset(l) + o * row(l) + i; }
-};
-
-// Reverse sweep of the one-tangent forward of one instance along the
-// world direction v, with cotangents dbar (on d) and tdbar (on td).
-// Adds the point's box-parameter cotangents to geo = [dloc 3 | drot 9 |
-// dhalf 3] and hands each MLP layer's per-point factors to the sink:
-// sink.layer(l, in, out, a, ta, hbar, thbar), with
-// dW_l[o][i] = hbar[o] a[i] + thbar[o] ta[i] (a[in] = 1, ta[in] = 0).
-// Every call reaches the sink in the same order (layers 4..0), which the
-// CUDA sink relies on for its block-wide barriers. W is laid out as
-// Padded; the LayerNorm residuals go to ``store``. The layer loops are
-// unrolled on the card so that every per-layer width is a constant there.
-// BF16: the default precision of the JAX body _group_dir_bwd (W rounded,
-// see above): the recomputed forward rounds as instance_forward<1, true>,
-// the input cotangents W^T hbar round hbar and thbar, and the sink rounds
-// its operands (hbar, thbar, a, ta) for the weight-gradient sums.
-template <bool BF16, class Sink>
-VSRD_HD void instance_backward(const float x[3], const float v[3], const float* loc,
-                               const float* rot, const float* half, const float* W,
-                               float inv_scale, float dbar, float tdbar, float geo[kGeo],
-                               Sink& sink, ColumnStore store) {
-  float tl[1][3];
-  for (int c = 0; c < 3; ++c) tl[0][c] = v[0] * rot[c] + v[1] * rot[3 + c] + v[2] * rot[6 + c];
-  BoxEval<1> box(x, loc, rot, half, tl);
-  float lbar[3] = {0.f, 0.f, 0.f}, tlbar[3] = {0.f, 0.f, 0.f};
-
-  if (W != nullptr) {
-    const float sym[3] = {fabsf(box.l[0]) * inv_scale, box.l[1] * inv_scale, box.l[2] * inv_scale};
-    const float tsym[3] = {box.s[0] * tl[0][0] * inv_scale, tl[0][1] * inv_scale,
-                           tl[0][2] * inv_scale};
-    // ---- forward, keeping each LayerNorm's y, tc and istd ----
-    float h[kHid], th[1][kHid];
-    for (int o = 0; o < kHid; ++o) {
-      h[o] = W[Padded::at(0, o, kEnc)];
-      th[0][o] = 0.f;
-    }
-    for (int dim = 0; dim < 3; ++dim) {
-      float e[2 * kFreq];
-      if (BF16) enc_dim_jax(sym[dim], e);
-      for (int k = 0; k < kFreq; ++k) {
-        float cs, sn;
-        const float tf = frequency(k) * tsym[dim];
-        const int c = dim * 2 * kFreq + 2 * k;
-        if (BF16) {
-          // the JAX body's tangent rows (-sin tf, cos tf), each an operand
-          cs = e[2 * k];
-          sn = e[2 * k + 1];
-          const float ocs = bf16_round(cs), osn = bf16_round(sn);
-          const float tc = bf16_round(-sn * tf), ts = bf16_round(cs * tf);
-          for (int o = 0; o < kHid; ++o) {
-            const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
-            h[o] += wc * ocs + ws * osn;
-            th[0][o] += wc * tc + ws * ts;
-          }
-        } else {
-          enc_pair(sym[dim], k, cs, sn);
-          for (int o = 0; o < kHid; ++o) {
-            const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
-            h[o] += wc * cs + ws * sn;
-            th[0][o] += (ws * cs - wc * sn) * tf;
-          }
-        }
-      }
-    }
-    float raw = 0.f, traw = 0.f;
-    VSRD_UNROLL
-    for (int l = 1; l <= 4; ++l) {
-      float y[kHid], tc[1][kHid], ty[1][kHid], istd;
-      layer_norm_fwd<1>(h, th, y, tc, ty, istd);
-      float p = 0.f;
-      for (int i = 0; i < kHid; ++i) {
-        store.y(l - 1, i) = y[i];
-        store.tc(l - 1, i) = tc[0][i];
-        p += y[i] * tc[0][i];
-      }
-      store.istd(l - 1) = istd;
-      store.p(l - 1) = p * (1.f / kHid);
-      float a[kHid], ta[kHid];
-      for (int i = 0; i < kHid; ++i) {
-        const Gelu g(y[i]);
-        a[i] = operand<BF16>(y[i] * g.cdf);
-        ta[i] = operand<BF16>((g.cdf + y[i] * g.pdf) * ty[0][i]);
-      }
-      const float* Wl = W + Padded::offset(l);
-      const int out = l < 4 ? kHid : 1;
-      for (int o = 0; o < out; ++o) {
-        float acc = Wl[o * Padded::row(l) + kHid], tacc = 0.f;
-        for (int i = 0; i < kHid; ++i) {
-          acc += Wl[o * Padded::row(l) + i] * a[i];
-          tacc += Wl[o * Padded::row(l) + i] * ta[i];
-        }
-        if (l < 4) {
-          h[o] = acc;
-          th[0][o] = tacc;
-        } else {
-          raw = acc;
-          traw = tacc;
-        }
-      }
-    }
-    const float sig = sigmoidf(raw - 1.f);
-    const float dsig = sig * (1.f - sig);
-
-    // ---- reverse ----
-    float hbar[kHid], thbar[kHid];
-    hbar[0] = dbar * dsig + tdbar * traw * dsig * (1.f - 2.f * sig);
-    thbar[0] = tdbar * dsig;
-    VSRD_UNROLL
-    for (int l = 4; l >= 1; --l) {
-      const int out = l == 4 ? 1 : kHid;
-      float y[kHid], tc[kHid];
-      for (int i = 0; i < kHid; ++i) {
-        y[i] = store.y(l - 1, i);
-        tc[i] = store.tc(l - 1, i);
-      }
-      const float istd = store.istd(l - 1), p = store.p(l - 1);
-      float a[kHid], ta[kHid], ty[kHid], g1[kHid], g2[kHid];
-      for (int i = 0; i < kHid; ++i) {
-        const Gelu g(y[i]);
-        ty[i] = istd * (tc[i] - y[i] * p);
-        g1[i] = g.cdf + y[i] * g.pdf;
-        g2[i] = g.pdf * (2.f - y[i] * y[i]);
-        a[i] = y[i] * g.cdf;
-        ta[i] = g1[i] * ty[i];
-      }
-      sink.layer(l, kHid, out, a, ta, hbar, thbar);
-      const float* Wl = W + Padded::offset(l);
-      // row by row, so that each weight row is read in order and the 16
-      // sums advance side by side (each still in the order of o)
-      float abar[kHid], tabar[kHid];
-      for (int i = 0; i < kHid; ++i) abar[i] = tabar[i] = 0.f;
-      for (int o = 0; o < out; ++o) {
-        const float hb = operand<BF16>(hbar[o]), thb = operand<BF16>(thbar[o]);
-        for (int i = 0; i < kHid; ++i) {
-          abar[i] += Wl[o * Padded::row(l) + i] * hb;
-          tabar[i] += Wl[o * Padded::row(l) + i] * thb;
-        }
-      }
-      float ybar[kHid], tybar[kHid];
-      for (int i = 0; i < kHid; ++i) {
-        ybar[i] = abar[i] * g1[i] + tabar[i] * ty[i] * g2[i];
-        tybar[i] = tabar[i] * g1[i];
-      }
-      // LayerNorm pair: the tangent transposes like the primal; the
-      // primal input also picks up the second-order term through istd, y
-      float s_tyb = 0.f, s_ytyb = 0.f, s_yb = 0.f, s_yyb = 0.f, s_tctyb = 0.f;
-      for (int i = 0; i < kHid; ++i) {
-        s_tyb += tybar[i];
-        s_ytyb += y[i] * tybar[i];
-        s_yb += ybar[i];
-        s_yyb += y[i] * ybar[i];
-        s_tctyb += tc[i] * tybar[i];
-      }
-      const float inv_c = 1.f / kHid;
-      float g[kHid], g_mean = 0.f;
-      for (int i = 0; i < kHid; ++i) {
-        g[i] = istd * istd *
-               (-y[i] * (s_tctyb - 3.f * p * s_ytyb) * inv_c - tc[i] * s_ytyb * inv_c -
-                p * tybar[i]);
-        g_mean += g[i];
-      }
-      g_mean *= inv_c;
-      for (int i = 0; i < kHid; ++i) {
-        thbar[i] = istd * (tybar[i] - s_tyb * inv_c - y[i] * s_ytyb * inv_c);
-        hbar[i] = istd * (ybar[i] - s_yb * inv_c - y[i] * s_yyb * inv_c) + g[i] - g_mean;
-      }
-    }
-
-    // layer 0 and the encoding
-    float x0[kEnc], tx0[kEnc];
-    for (int dim = 0; dim < 3; ++dim) {
-      float e[2 * kFreq];
-      if (BF16) enc_dim_jax(sym[dim], e);
-      for (int k = 0; k < kFreq; ++k) {
-        float cs, sn;
-        if (BF16) {
-          cs = e[2 * k];
-          sn = e[2 * k + 1];
-        } else {
-          enc_pair(sym[dim], k, cs, sn);
-        }
-        const float tf = frequency(k) * tsym[dim];
-        const int c = dim * 2 * kFreq + 2 * k;
-        x0[c] = cs;
-        x0[c + 1] = sn;
-        tx0[c] = -sn * tf;
-        tx0[c + 1] = cs * tf;
-      }
-    }
-    sink.layer(0, kEnc, kHid, x0, tx0, hbar, thbar);
-    float symbar[3] = {0.f, 0.f, 0.f}, tsymbar[3] = {0.f, 0.f, 0.f};
-    float hb[kHid], thb[kHid];
-    for (int o = 0; o < kHid; ++o) {
-      hb[o] = operand<BF16>(hbar[o]);
-      thb[o] = operand<BF16>(thbar[o]);
-    }
-    for (int dim = 0; dim < 3; ++dim) {
-      for (int k = 0; k < kFreq; ++k) {
-        const int c = dim * 2 * kFreq + 2 * k;
-        float xc = 0.f, xs = 0.f, txc = 0.f, txs = 0.f;
-        for (int o = 0; o < kHid; ++o) {
-          const float wc = W[Padded::at(0, o, c)], ws = W[Padded::at(0, o, c + 1)];
-          xc += wc * hb[o];
-          xs += ws * hb[o];
-          txc += wc * thb[o];
-          txs += ws * thb[o];
-        }
-        const float f = frequency(k), cs = x0[c], sn = x0[c + 1];
-        const float tf = f * tsym[dim];
-        symbar[dim] += f * (cs * xs - sn * xc) - f * tf * (cs * txc + sn * txs);
-        tsymbar[dim] += f * (cs * txs - sn * txc);
-      }
-    }
-    lbar[0] += symbar[0] * box.s[0] * inv_scale;
-    tlbar[0] += tsymbar[0] * box.s[0] * inv_scale;
-    for (int c = 1; c < 3; ++c) {
-      lbar[c] += symbar[c] * inv_scale;
-      tlbar[c] += tsymbar[c] * inv_scale;
-    }
+  float s_tyb = 0.f, s_ytyb = 0.f, s_yb = 0.f, s_yyb = 0.f, s_tctyb = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+    s_tyb += tybar[i];
+    s_ytyb += y[i] * tybar[i];
+    s_yb += ybar[i];
+    s_yyb += y[i] * ybar[i];
+    s_tctyb += tc[i] * tybar[i];
   }
+  const float inv_c = 1.f / kHid;
+  float g[kHid], g_mean = 0.f;
+  for (int i = 0; i < kHid; ++i) {
+    g[i] = istd * istd *
+           (-y[i] * (s_tctyb - 3.f * p * s_ytyb) * inv_c - tc[i] * s_ytyb * inv_c - p * tybar[i]);
+    g_mean += g[i];
+  }
+  g_mean *= inv_c;
+  for (int i = 0; i < kHid; ++i) {
+    thbar[i] = istd * (tybar[i] - s_tyb * inv_c - y[i] * s_ytyb * inv_c);
+    hbar[i] = istd * (ybar[i] - s_yb * inv_c - y[i] * s_yyb * inv_c) + g[i] - g_mean;
+  }
+}
 
-  // box: d = o - relu(-q_max), td = to + gate tq[jmax]
-  const float obar = dbar - tdbar * box.to[0] / box.o;
-  float qbar[3], tqbar[3];
+// The box's part of the reverse sweep at the point x along v: d = o -
+// relu(-q_max) and td = to + gate tq[jmax] (q = |l| - half, r = relu(q), o =
+// sqrt(|r|^2 + 1e-6), tq = s tl with tl = R^T v, to = <r, tq> / o), with the
+// cotangents dbar and tdbar, and lbar and tlbar, those the MLP gave the
+// local position l and its tangent tl (both are updated). Recomputes the
+// box from x, so nothing of it lives across the MLP. Adds the point's
+// cotangents to geo = [dloc 3 | drot 9 | dhalf 3].
+VSRD_HD void box_backward(const float x[3], const float v[3], const float* loc, const float* rot,
+                          const float* half, float dbar, float tdbar, float lbar[3],
+                          float tlbar[3], float geo[kGeo]) {
+  float rel[3], s[3], q[3], r[3], tq[3];
+  for (int k = 0; k < 3; ++k) rel[k] = x[k] - loc[k];
   for (int c = 0; c < 3; ++c) {
-    const float rbar = (obar * box.r[c] + tdbar * box.tq[0][c]) / box.o;
-    tqbar[c] = tdbar * box.r[c] / box.o;
-    qbar[c] = box.q[c] > 0.f ? rbar : 0.f;
+    const float l = rel[0] * rot[c] + rel[1] * rot[3 + c] + rel[2] * rot[6 + c];
+    s[c] = signf(l);
+    q[c] = fabsf(l) - half[c];
+    r[c] = fmaxf(q[c], 0.f);
+    tq[c] = s[c] * (v[0] * rot[c] + v[1] * rot[3 + c] + v[2] * rot[6 + c]);
   }
-  qbar[box.jmax] += dbar * box.gate;
-  tqbar[box.jmax] += tdbar * box.gate;
+  const float o = sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2] + 1e-6f);
+  // the max face as BoxGrad picks it, by selects
+  const bool first = q[0] > q[1];
+  const bool third = q[2] > (first ? q[0] : q[1]);
+  const int jmax = third ? 2 : (first ? 0 : 1);
+  const float gate = (third ? q[2] : (first ? q[0] : q[1])) < 0.f ? 1.f : 0.f;
+  const float to = (r[0] * tq[0] + r[1] * tq[1] + r[2] * tq[2]) / o;
+  const float obar = dbar - tdbar * to / o;
   for (int c = 0; c < 3; ++c) {
-    geo[12 + c] -= qbar[c];
-    lbar[c] += qbar[c] * box.s[c];
-    tlbar[c] += tqbar[c] * box.s[c];
+    const float rbar = (obar * r[c] + tdbar * tq[c]) / o;
+    const float qbar = (q[c] > 0.f ? rbar : 0.f) + (c == jmax ? dbar * gate : 0.f);
+    const float tqbar = tdbar * r[c] / o + (c == jmax ? tdbar * gate : 0.f);
+    geo[12 + c] -= qbar;
+    lbar[c] += qbar * s[c];
+    tlbar[c] += tqbar * s[c];
   }
   for (int k = 0; k < 3; ++k) {
     float rl = 0.f;
     for (int c = 0; c < 3; ++c) {
-      geo[3 + k * 3 + c] += lbar[c] * box.rel[k] + tlbar[c] * v[k];
+      geo[3 + k * 3 + c] += lbar[c] * rel[k] + tlbar[c] * v[k];
       rl += rot[k * 3 + c] * lbar[c];
     }
     geo[k] -= rl;
   }
+}
+
+// One instance's reverse sweep at the point x along the world direction v
+// with the residual field (K2/K4c's second stage; its first, instance_dir
+// with the rounded 1 / scale, gave dbar and tdbar): adds the point's box
+// cotangents to geo = [dloc 3 | drot 9 | dhalf 3] and its weight cotangents,
+// through prod, to the instance's sums. misc: the instance's kRevMisc block.
+// BF16: the default precision of the JAX body _group_dir_bwd: the forward
+// rounds as instance_dir<true>, the input cotangents W_l^T [hbar | thbar]
+// round hbar and thbar (the product rounds its B), layer 4's round its
+// operands here, and the weight cotangents are sums of products of the
+// rounded hbar, thbar, a and ta. prod is mlp_dir's product object, its 16
+// staging rows of value and tangent (at, tan_at) being the first block,
+// with a second block of 16 such rows (in_at, in_tan_at) and:
+//   second(l)     where the second block lies for layer l's reverse (on the
+//                 card the residual block that layer just read, or the
+//                 first block for layer 4)
+//   hold()        keep the first block's rows as B for reverse0
+//   reverse(l)    C += W_l^T B, B the first block's rows, l = 1..3
+//   reverse0(m)   C += the 16 rows of W_0^T of coordinate m times the kept B
+//   store_in()    the second block's rows = C
+//   grad(l, m)    dW_l += [hbar | thbar] [a | ta]^T over the value and
+//                 tangent columns, l = 0..3: hbar|thbar the first block's
+//                 rows, a|ta the second block's (for l = 0 W_0's 16 inputs
+//                 of coordinate m); for m = 0 also the bias column, the sum
+//                 of the first block's value rows
+//   grad4(hb, thb) the same for layer 4's one output, whose cotangents this
+//                 point passes as hb and thb
+// Every call makes the same sequence of product calls, as the card's
+// warp-wide mma needs. The layer loops are unrolled on the card, so that
+// every layer index is a constant there.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <bool BF16, class Prod>
+VSRD_HD void instance_backward(const float x[3], const float v[3], const float* loc,
+                               const float* rot, const float* half, const float* misc,
+                               float inv_scale, float dbar, float tdbar, float geo[kGeo],
+                               Prod& prod, ColumnStore store) {
+  const BoxGrad box(x, loc, rot, half);
+  float tl[3], td;
+  box_dir(box, v, rot, tl, td);
+  const float sym[3] = {fabsf(box.l[0]) * inv_scale, box.l[1] * inv_scale, box.l[2] * inv_scale};
+  const float tsym[3] = {box.s[0] * tl[0] * inv_scale, tl[1] * inv_scale, tl[2] * inv_scale};
+
+  // ---- forward, keeping each LayerNorm's residuals ----
+  float y[kHid], tc[kHid], cdf[kHid], istd, p, raw, traw;
+  mlp_dir<BF16>(
+      sym, tsym, misc, inv_scale, prod,
+      [&](int l, const float* yl, const float* tcl, const float* cdfl, float istd_l, float p_l) {
+        for (int i = 0; i < kHid; ++i) {
+          store.y(l - 1, i) = yl[i];
+          store.tc(l - 1, i) = tcl[i];
+          store.cdf(l - 1, i) = cdfl[i];
+        }
+        store.istd(l - 1) = istd_l;
+        store.p(l - 1) = p_l;
+      },
+      y, tc, cdf, istd, p, raw, traw);
+  const float sig = sigmoidf(raw - 1.f);
+  const float dsig = sig * (1.f - sig);
+  prod.sync();  // every point has read the forward's last rows
+
+  // ---- reverse, layers 4..1: the weight cotangents, W_l^T (layer 4's one
+  // output row on the CUDA cores), then the pair's reverse per point ----
+  float hbar[kHid], thbar[kHid];
+  VSRD_UNROLL
+  for (int l = 4; l >= 1; --l) {
+    if (l < 4) {
+      for (int i = 0; i < kHid; ++i) {
+        y[i] = store.y(l - 1, i);
+        tc[i] = store.tc(l - 1, i);
+        cdf[i] = store.cdf(l - 1, i);
+      }
+      istd = store.istd(l - 1);
+      p = store.p(l - 1);
+      prod.sync();  // every point has read its residuals
+    }
+    prod.second(l);
+    float g1[kHid], ty[kHid], abar[kHid], tabar[kHid];
+    for (int i = 0; i < kHid; ++i) {
+      const GeluDir g(y[i], tc[i], istd, p, cdf[i]);
+      g1[i] = g.g1;
+      ty[i] = g.ty;
+      prod.in_at(i) = g.a;
+      prod.in_tan_at(i) = g.ta;
+    }
+    if (l == 4) {
+      const float hb = dbar * dsig + tdbar * traw * dsig * (1.f - 2.f * sig);
+      const float thb = tdbar * dsig;
+      prod.sync();
+      prod.grad4(hb, thb);
+      prod.sync();  // every point has read the rows
+      const float xo = operand<BF16>(hb), txo = operand<BF16>(thb);
+      for (int i = 0; i < kHid; ++i) {
+        abar[i] = misc[4 * kHid + i] * xo;
+        tabar[i] = misc[4 * kHid + i] * txo;
+      }
+    } else {
+      for (int o = 0; o < kHid; ++o) {
+        prod.at(o) = hbar[o];
+        prod.tan_at(o) = thbar[o];
+      }
+      prod.sync();
+      prod.grad(l, 0);
+      prod.begin(nullptr);
+      prod.reverse(l);
+      prod.sync();  // every point has read the second block's rows
+      prod.store_in();
+      prod.sync();
+      for (int i = 0; i < kHid; ++i) {
+        abar[i] = prod.in_at(i);
+        tabar[i] = prod.in_tan_at(i);
+      }
+    }
+    backward_ln_gelu_dir(y, tc, istd, p, g1, ty, abar, tabar, hbar, thbar);
+  }
+
+  // ---- layer 0, one coordinate (16 encoding channels, 16 rows of W_0^T)
+  // at a time: its weight cotangents, then the channels' cotangents ----
+  for (int o = 0; o < kHid; ++o) {
+    prod.at(o) = hbar[o];
+    prod.tan_at(o) = thbar[o];
+  }
+  prod.sync();
+  prod.hold();
+  prod.second(0);
+  float lbar[3], tlbar[3], e[2 * kFreq];
+  VSRD_UNROLL
+  for (int m = 0; m < 3; ++m) {
+    enc_fwd<BF16>(inv_scale, sym[m], e);
+    for (int k = 0; k < kFreq; ++k) {
+      const float tf = frequency(k) * tsym[m];
+      prod.in_at(2 * k) = e[2 * k];
+      prod.in_at(2 * k + 1) = e[2 * k + 1];
+      prod.in_tan_at(2 * k) = -e[2 * k + 1] * tf;
+      prod.in_tan_at(2 * k + 1) = e[2 * k] * tf;
+    }
+    prod.sync();
+    prod.grad(0, m);
+    prod.begin(nullptr);
+    prod.reverse0(m);
+    prod.sync();  // every point has read the second block's rows
+    prod.store_in();
+    prod.sync();
+    float symbar = 0.f, tsymbar = 0.f;
+    for (int k = 0; k < kFreq; ++k) {
+      const float f = frequency(k), cs = e[2 * k], sn = e[2 * k + 1];
+      const float tf = f * tsym[m];
+      const float xc = prod.in_at(2 * k), xs = prod.in_at(2 * k + 1);
+      const float txc = prod.in_tan_at(2 * k), txs = prod.in_tan_at(2 * k + 1);
+      symbar += f * (cs * xs - sn * xc) - f * tf * (cs * txc + sn * txs);
+      tsymbar += f * (cs * txs - sn * txc);
+    }
+    lbar[m] = m == 0 ? symbar * box.s[0] * inv_scale : symbar * inv_scale;
+    tlbar[m] = m == 0 ? tsymbar * box.s[0] * inv_scale : tsymbar * inv_scale;
+  }
+  box_backward(x, v, loc, rot, half, dbar, tdbar, lbar, tlbar, geo);
+}
+
+// One instance's distance d at the point x, the value forward alone (the
+// sphere tracer's). W: the instance's 1617 weights, or nullptr for box
+// only. inv: the encoding's 1 / scale, a float or a Scaler. Strict products,
+// as the JAX package's photometric field runs them.
+template <class Inv>
+VSRD_HD float instance_forward(const float x[3], const float* loc, const float* rot,
+                               const float* half, const float* W, const Inv& inv) {
+  const BoxGrad box(x, loc, rot, half);
+  if (W == nullptr) return box.d;
+  const float sym[3] = {scaled(inv, fabsf(box.l[0])), scaled(inv, box.l[1]),
+                        scaled(inv, box.l[2])};
+
+  // layer 0: encoding channels are produced and consumed one pair at a time
+  float h[kHid];
+  for (int o = 0; o < kHid; ++o) h[o] = W[o * (kEnc + 1) + kEnc];
+  for (int dim = 0; dim < 3; ++dim) {
+    for (int k = 0; k < kFreq; ++k) {
+      float cs, sn;
+      enc_pair(sym[dim], k, cs, sn);
+      const int c = dim * 2 * kFreq + 2 * k;
+      for (int o = 0; o < kHid; ++o)
+        h[o] += W[o * (kEnc + 1) + c] * cs + W[o * (kEnc + 1) + c + 1] * sn;
+    }
+  }
+
+  // layers 1..4: LayerNorm + GELU, then Linear
+  float raw = 0.f;
+  for (int l = 1; l <= 4; ++l) {
+    float y[kHid], a[kHid], cdf[kHid];
+    ln_gelu(h, y, a, cdf);
+    const float* Wl = W + layer_offset(l);
+    const int out = l < 4 ? kHid : 1;
+    for (int o = 0; o < out; ++o) {
+      float acc = Wl[o * (kHid + 1) + kHid];
+      for (int i = 0; i < kHid; ++i) acc += Wl[o * (kHid + 1) + i] * a[i];
+      if (l < 4)
+        h[o] = acc;
+      else
+        raw = acc;
+    }
+  }
+  return box.d + sigmoidf(raw - 1.f);
 }
 
 // ---- Sphere tracing (sphere_trace.cu) ----
@@ -1192,7 +1130,7 @@ VSRD_HD void instance_backward(const float x[3], const float v[3], const float* 
 // distance it steps by is the hard union, the least d_i over the valid
 // instances (NaN if a d_i is NaN, as argmin picks a NaN first; FLT_MAX when
 // no instance is valid), or with tau > 0 the softmin union. d_i is the value
-// forward instance_forward<0>, its encoding dividing by the scale as the
+// forward instance_forward, its encoding dividing by the scale as the
 // twin does (Scaler: a rounded 1 / scale moves every phase by one relative
 // error, which a march can turn into a step more or less). W: the scene's
 // N x 1617 weights, or nullptr for box only. A union is accumulated over a subset of the instances
@@ -1211,8 +1149,8 @@ struct SceneField {
   float tau;
 
   VSRD_HD float distance(const float x[3], int i) const {
-    return instance_forward<0>(x, loc + 3 * i, rot + 9 * i, half + 3 * i,
-                               W ? W + i * kWeights : nullptr, inv, nullptr, nullptr);
+    return instance_forward(x, loc + 3 * i, rot + 9 * i, half + 3 * i,
+                            W ? W + i * kWeights : nullptr, inv);
   }
 
   // the union over the instances first, first + stride, ...

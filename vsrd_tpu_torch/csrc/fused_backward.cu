@@ -13,334 +13,338 @@
 // each instance's MLP and box (instance_backward, field_common.cuh).
 //
 // Three kernels, launched back to back on one stream:
-//   1. union_cotangent_kernel, grid (point blocks, F), one point per
-//      thread: every active instance's d and its derivative td along dg
-//      (instance_forward<1>, weights staged in shared memory in groups of
-//      kGroup), then union_backward; d_bar and td_bar go to scratch
-//      [F, N, P], instance-major so that stage 2 reads them coalesced;
+//   1. union_cotangent_kernel, grid (point tiles of 256, F): every active
+//      instance's d and its derivative td along dg by instance_dir, K3's
+//      one-tangent forward, with its layer products on the tensor cores as
+//      in dir_forward.cu (each instance's weights copied with cp.async
+//      while the previous instance computes, then split once per CTA into
+//      the 12 forward A-fragment blocks; per warp one staging block of 16
+//      rows of 32 value + 32 tangent columns); then union_backward, one
+//      point per thread. d_bar and td_bar go to scratch [F, N, P],
+//      instance-major so that stage 2 reads them coalesced;
 //   2. instance_backward_kernel, grid (tiles, N, F): a CTA of 4 warps holds
-//      ONE instance of one frame (its weights, in rows padded to 16 bytes,
-//      and its 15 box values, copied with cp.async) and walks
-//      kChunksPerCta chunks of kChunk points, one point per thread: the
-//      one-tangent forward again, then the reverse sweep. The weight
-//      gradient dW_l = sum_p hbar a^T + thbar ta^T of every layer is, per
-//      chunk, an [out x 2 kChunk] x [2 kChunk x in] product (primal and
-//      tangent halves stacked along K) on the tensor cores with
-//      mma.sync.m16n8k8 in 3xTF32: each operand is split into big =
-//      tf32(x) and small = tf32(x - big), and big*big + big*small +
-//      small*big is accumulated in f32, which holds f32 accuracy where one
-//      TF32 product (10-bit mantissa) would not (tests/
-//      test_torch_kernels.py pins both). The m16n8 tiles (6 for layer 0,
-//      2 for each other layer; layer 4's single output row padded to 16)
-//      are shared out so that every warp does the same work: some tiles
-//      are split along K between two warps and added in the epilogue. The
-//      accumulators stay in registers for the CTA's whole range. The bias
-//      column (a = 1, ta = 0) is the sum of hbar over the primal half,
-//      added up in f32 by one warp from its A fragments. The box
-//      cotangents are summed per thread, then over the CTA in thread
-//      order. Each CTA writes one partial row [dW 1617 | dloc 3 | drot 9 |
-//      dhalf 3] (box-only: the last 15) to partial [F, N, tiles, row];
+//      ONE instance of one frame and walks kChunksPerCta chunks of kChunk
+//      points, one point per thread. Its weights are split once into the
+//      24 A-fragment blocks of warp_product.cuh (W_l for the forward, W_l^T
+//      for the reverse), read from global memory. Each warp runs its own 32
+//      points through instance_backward with every 16-wide layer product on
+//      the tensor cores, over a staging block of its own (16 rows of 32
+//      value + 32 tangent columns) and, for each reverse step, a second one
+//      laid over the residual block that step has just read: the
+//      recomputed forward as K3's, the reverse [abar | tabar] = W_l^T [hbar
+//      | thbar] (the value and tangent cotangents as the two column blocks
+//      of one product; layer 0's W^T one coordinate, one m-tile, at a
+//      time), and the weight cotangents dW_l = sum_p hbar a^T + thbar ta^T
+//      as m16n8 tiles over the warp's 64 columns (A = [hbar | thbar], B =
+//      [a | ta]), 14 tiles whose accumulators stay in the warp's registers
+//      for the CTA's whole range. Layer 4 (one output) reverses on the CUDA
+//      cores; its dW row is a tile with one real row, which lane gid = 0
+//      takes from the lanes by shuffles. The bias column (a = 1, ta = 0) is
+//      the sum of hbar over the value columns, added up by each quad from
+//      its A fragments. Warps synchronise only themselves (__syncwarp)
+//      between the CTA's two barriers, after the weight split and before the
+//      epilogue, which sums the warps' tiles and bias sums in warp order and
+//      the box cotangents (summed per thread) in thread order into one
+//      partial row [dW 1617 | dloc 3 | drot 9 | dhalf 3] (box-only: the last
+//      15) of partial [F, N, tiles, row];
 //   3. reduce_partials_kernel sums each (frame, instance)'s rows in tile
 //      order into out [F, N, row].
-// No atomics: every sum runs in a fixed order, so the result is bit for
-// bit repeatable, and a frame's CTAs read only that frame's inputs.
-// The default precision (BF16, the JAX body at Precision.DEFAULT): stage 1
-// and stage 2's recompute round every product operand to bf16 (the weights
-// once, where they are staged), the input cotangents W^T hbar round hbar,
-// and the weight-gradient sums are one bf16 mma of the rounded operands
-// (MmaSink<true>); reduce_partials_kernel sums in f32 either way.
-// Inactive instances (instance_active) write zero rows.
+// Products in 3xTF32 (mma_tf32.cuh: each operand split into big = tf32(x)
+// and small = tf32(x - big), big*big + big*small + small*big accumulated in
+// f32, which holds f32 accuracy where one TF32 product would not;
+// tests/test_torch_kernels.py pins it for the forward, the reverse and the
+// weight-cotangent sums). The default precision (BF16, the JAX body at
+// Precision.DEFAULT): ONE bf16 mma.sync per product of the operands rounded
+// where the JAX body _group_dir_bwd rounds them: the weights once per CTA
+// (packed 64-word fragment blocks), a and ta in the forward, hbar and thbar
+// for W_l^T [hbar | thbar], hbar, thbar, a and ta for the weight cotangents,
+// the bias column the sum of the rounded hbar; reduce_partials_kernel sums
+// in f32 either way. Inactive instances (instance_active) write zero rows.
+// No atomics: every sum runs in a fixed order, so the result is bit for bit
+// repeatable, and a frame's CTAs read only that frame's inputs.
 //
 // Per-tile instance-group skipping (the TPU body's two passes with a mask,
 // fused_field.scene_eval_stacked_dir_bwd_t, the K1 launch's keep mask
 // [F][ceil(N / 8)][ceil(P / mask_tile)], mask_tile a multiple of kChunk):
-// stage 1 is pass 1, a point whose tile drops a group writes kSkipDistance
-// and td = 0 for its instances without evaluating them (a block whose
-// points all drop it does not stage its weights), so the union gives them
-// d_bar = td_bar = 0 exactly; stage 2 is pass 2, a chunk (inside one mask
-// tile) whose tile drops the CTA's instance adds exactly zero and is
-// skipped, and a CTA that skips every chunk writes a zero row (the partial
-// rows are never zeroed, so every CTA writes its own).
+// stage 1 is pass 1: an instance whose group every tile of the CTA drops
+// runs no MLP (its weights are not fetched), and a point whose tile drops
+// the group writes kSkipDistance and td = 0, so the union gives it d_bar =
+// td_bar = 0 exactly; stage 2 is pass 2, a chunk (inside one mask tile)
+// whose tile drops the CTA's instance adds exactly zero and is skipped, and
+// a CTA that skips every chunk writes a zero row (the partial rows are
+// never zeroed, so every CTA writes its own).
 //
 // Sizes below are computed from the code and the shapes; the times measured
 // on an NVIDIA H100 80GB HBM3 at 700.00 W are in PERF.md.
 //
 // Scratch, from the grid: d_bar and td_bar 2 F N P floats (102 MB at F=8,
 // N=8, P=199,000), partial F N tiles row floats with tiles =
-// ceil(ceil(P / 128) / 4) (389 at P=199,000: 163 MB at F=8, N=8, 20 MB at
+// ceil(ceil(P / 128) / 8) (195 at P=199,000: 81 MB at F=8, N=8, 10 MB at
 // F=1). Every element is written before it is read, so none is zeroed.
 //
-// The bound. Per point and active instance the residual backward does
-// 9,312 f32 FMAs outside the tensor cores (the tangent forward of stage 1,
-// 3,104; the recomputed forward, 3,104; the reverse matvecs, 3,104) and
-// 3,169 multiply-adds of dW on the tensor cores, three products each in
-// 3xTF32. At 67 TFLOP/s f32 (2 FLOP an FMA) those take 0.278 ns per
-// point-instance; the dW sums, at 2 FLOP a multiply-add over 495 / 3
-// TFLOP/s, 0.038 ns. Since every one of those products could run on the
-// tensor cores, the function's least time counts all 12,481 multiply-adds
-// at the 3xTF32 rate and the rest (box, encoding, LayerNorm, GELU, union)
-// at the f32 rate (chip_smoke.py::kernel_bound). Its bytes (positions,
+// The bound. Per point and active instance the residual backward takes
+// 12,481 multiply-adds of layer products, all on the tensor cores: the
+// tangent forward of stage 1 (3,104), the recomputed forward (3,104), the
+// reverse W^T [hbar | thbar] (3,104) and the weight cotangents (3,169);
+// three products each in 3xTF32 (495 / 3 TFLOP/s), one in bf16 (989
+// TFLOP/s). The rest (box, encoding, LayerNorm and GELU with their
+// tangents and second-order reverses, the union) runs at the f32 rate
+// (chip_smoke.py::kernel_bound counts both). Its bytes (positions,
 // directions and cotangents, 28 + 4 N floats' worth per point and frame)
 // take 0.03 ms at F=8, P=199,000. Box-only is bound by those bytes.
 //
-// What the design does about what held the PR-2 kernel back (a fixed pool
-// of 64-thread CTAs, each walking every instance of its frame):
-//   * occupancy: a stage-2 CTA stages one instance's weights (7.2 KB
-//     padded) instead of eight (52 KB); with the residuals and the mma
-//     staging it takes 94.9 KB of shared memory and 254 registers a thread
-//     (-Xptxas -v), so 2 CTAs of 4 warps (8 warps) fit on an SM, against
-//     2 CTAs of 2 warps;
-//   * the weight-gradient sink: the scalar dot products over shared
-//     memory (four loads per two FMAs) became tensor-core products, two
-//     barriers per layer and chunk of 128 points;
-//   * local memory: the LayerNorm residuals (y, tc, istd, P of layers
-//     1-4, 136 floats per point) live in a per-thread column of shared
-//     memory (ColumnStore) and the layer loops are unrolled, so no spill
-//     remains (a 592-byte stack frame holds the encoding's per-point
-//     arrays);
-//   * the frame split of a fixed CTA pool: the grid is (tiles, N, F), so
-//     the work per CTA is the same at any F and N, and every (frame,
-//     instance) pair runs in parallel.
+// Occupancy (stage 2, with the residual field): a CTA's shared memory is
+// the 24 fragment blocks (6 KB in bf16, 12 KB in 3xTF32), a staging block a
+// warp (18 KB), the residual blocks of layers 1-3 (y, tc, Phi(y), istd, p:
+// 150 floats a point, 77 KB; keeping Phi spares the reverse 48 erf a
+// point), the bias sums and the instance's misc block: 102.9 KB in bf16 and
+// 109.0 KB in 3xTF32, so 2 CTAs of 4 warps share an SM (8 warps). The
+// registers bind as much: the 14 tiles take 56 a thread, and -Xptxas -v
+// reads 255 (bf16, no spill). A warp needs no partner between the CTA's two
+// barriers, so the warps of both CTAs overlap freely. Stage 1: 256 threads
+// within 128 registers and 56.0 KB, 2 CTAs (16 warps) an SM.
 #include <cuda_runtime.h>
 
 #include "field_common.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "warp_product.cuh"
 
 namespace vsrd {
 
-constexpr int kChunk = 128;                  // points (threads) per CTA step
-constexpr int kChunksPerCta = 4;             // chunks a stage-2 CTA walks
-constexpr int kUnionThreads = 256;           // stage 1: points per block
-constexpr int kMaxInstances = 64;
-constexpr int kStageStride = 2 * kChunk + 4;  // mma staging row (+4: no bank conflicts)
+constexpr int kChunk = 128;                 // points (threads) per stage-2 CTA step
+constexpr int kChunksPerCta = 8;            // chunks a stage-2 CTA walks
 constexpr int kWarps = kChunk / 32;
+constexpr int kUnionThreads = 256;          // stage 1: points per CTA
+constexpr int kUnionWarps = kUnionThreads / 32;
+constexpr int kMaxInstances = 64;
+constexpr int kStageRows = kHid * kDirRowStride;  // one staging block of 16 rows
+constexpr int kBwdBlocks = 24;              // forward blocks 0-11, reverse 12-23 (warp_product.cuh)
+constexpr int kGradTiles = 14;              // dW's m16n8 tiles: 6 of layer 0, 2 of each other
+constexpr int kTileWords = 4 * 32;          // one tile's accumulators over a warp
+constexpr int kBias = 4 * kHid + 1;         // the bias columns of layers 0-4
+constexpr int kBiasStride = 68;             // a warp's bias sums, kBias rounded up to 4
+
+// A fragment block's words (warp_product.cuh): bf16 packs the 64 it uses,
+// 3xTF32 keeps the f32 values (128) and splits them as they are loaded
+template <bool BF16>
+constexpr int kBlock = BF16 ? 64 : 128;
 
 __host__ __device__ constexpr int layer_in(int l) { return l == 0 ? kEnc : kHid; }
 __host__ __device__ constexpr int layer_out(int l) { return l == 4 ? 1 : kHid; }
-constexpr int kSlots = 6;       // accumulator tiles per warp: 2 for layer 0, 1 for each other
-constexpr int kBias = 4 * kHid + 1;  // the bias columns of layers 0-4
 
-// The mma staging of layer l: rows a|ta for each input, then hbar|thbar for
-// each output, and where it starts in the region. Layer l >= 1 lies over
-// the residuals of layers > l, which its reverse step no longer needs;
-// layer 0 over all of them.
-__host__ __device__ constexpr int stage_rows(int l) { return layer_in(l) + layer_out(l); }
-__host__ __device__ constexpr int stage_offset(int l) { return l == 0 ? 0 : l * kRes * kChunk; }
-__host__ __device__ constexpr int stage_end(int l) {
-  return stage_offset(l) + stage_rows(l) * kStageStride;
-}
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int kRegion = cmax(cmax(cmax(stage_end(0), stage_end(1)),
-                                  cmax(stage_end(2), stage_end(3))),
-                             cmax(stage_end(4), 4 * kRes * kChunk));
+// Stage 1's shared memory (floats): the forward fragments, the warps'
+// staging blocks, the raw weights and the misc block.
+struct UnionLayout {
+  static constexpr int kStage = kFwdBlocks * 256;
+  static constexpr int kRaw = kStage + kUnionWarps * kStageRows;
+  static constexpr int kMiscAt = kRaw + kRawSize;
+  static constexpr int kSize = kMiscAt + kMisc;
+};
 
-// where weight e of the hypernetwork's packed output lies in the padded copy
-__device__ __forceinline__ int padded_index(int e) {
-  constexpr int rows0 = kHid * (kEnc + 1), block = kHid * (kHid + 1);
-  if (e < rows0) return Padded::at(0, e / (kEnc + 1), e % (kEnc + 1));
-  e -= rows0;
-  const int l = 1 + e / block;
-  e -= (l - 1) * block;
-  return Padded::at(l, e / (kHid + 1), e % (kHid + 1));
-}
+// Stage 2's shared memory with the residual field (floats): the fragments,
+// the misc block, the box (loc 3 | rot 9 | half 3 | pad), the warps' bias
+// sums, the warps' staging blocks, the warps' residual blocks (which the
+// epilogue reuses for the warps' tiles and the box cotangents).
+constexpr int kResBlock = kRes * 32;  // one layer's residuals over a warp
+static_assert(kStageRows <= kResBlock, "a residual block takes a staging block");
 
-// Sums each layer's weight gradient over the CTA's points on the tensor
-// cores. A layer's product C[o][i] = sum_k A[o][k] B[k][i] has K = 2 kChunk
-// (the chunk's points, primal half then tangent half), A = hbar|thbar and
-// B = a|ta, in m16n8 tiles of 8 input columns: 6 tiles for layer 0, 2 for
-// the others. Every warp does the same work, with no branch on the warp
-// around an mma (mma.sync needs the whole warp): in layer 0 warp w runs
-// tile w over all of K and tile 4 + w % 2 over half w / 2 of K; in layers
-// 1-4, tile w % 2 over half w / 2. The halves are added in the epilogue.
-// The bias column (a = 1, ta = 0) is the sum of hbar over the primal half:
-// warp 0 adds it up in f32 from its A fragments, into shared memory.
-// BF16: the default precision, ONE bf16 product per tile and k-step of the
-// rounded operands (mma_bf16.cuh), the bias column the sum of the rounded
-// hbar: the JAX body's dmats = obar stacked^T at Precision.DEFAULT.
 template <bool BF16>
-struct MmaSink {
-  float* region;  // shared: the staging
-  float* bias;    // shared: [kBias] bias-column sums
-  int tid;
-  float acc[kSlots][4];
+struct BackwardLayout {
+  static constexpr int kMiscAt = kBwdBlocks * kBlock<BF16>;
+  static constexpr int kBox = kMiscAt + kMisc;
+  static constexpr int kBiasAt = kBox + 16;
+  static constexpr int kStage = kBiasAt + kWarps * kBiasStride;
+  static constexpr int kColumns = kStage + kWarps * kStageRows;
+  static constexpr int kSize = kColumns + kWarps * kResLayers * kResBlock;
+  static_assert(kWarps * kGradTiles * kTileWords + kGeo * kChunk <=
+                    kWarps * kResLayers * kResBlock,
+                "the epilogue's sums fit in the residual blocks");
+};
 
-  __device__ MmaSink(float* r, float* b, int t) : region(r), bias(b), tid(t) {
-    for (int s = 0; s < kSlots; ++s)
-      for (int q = 0; q < 4; ++q) acc[s][q] = 0.f;
+// instance_backward's product object on the tensor cores: K3's
+// (WarpDirProduct, over the warp's staging block) with a second block for a
+// reverse step's layer inputs and outputs: the residual block the step has
+// just read (the first block for layer 4, which keeps its residuals in
+// registers), so that it costs no shared memory of its own. The reverse
+// products W_l^T [hbar | thbar] come from the reverse fragment blocks; the
+// weight cotangents, per layer (for layer 0 per coordinate), are two m16n8
+// tiles over the warp's 64 columns, C [16 x 16] += A [16 x 64] B [64 x 16]
+// with A = hbar|thbar (the first block's rows; for layer 4 one row, taken
+// from the lanes by shuffles) and B = (a|ta)^T (the second block's rows
+// read down their columns), 8 k-steps, the first 4 the value columns. A
+// lane's 14 tiles stay in its registers (g). Every lane calls every method,
+// so the warp stays converged around each mma.
+template <bool BF16>
+struct BackwardProduct : WarpDirProduct<BF16, kBlock<BF16>> {
+  using Base = WarpDirProduct<BF16, kBlock<BF16>>;
+  using Base::act;
+  using Base::c;
+  using Base::frag;
+  using Base::lane;
+  float* res;   // this warp's residual blocks [kResLayers][kResBlock]
+  float* in;    // the second block
+  float* bias;  // this warp's bias-column sums [kBias]
+  float g[kGradTiles][4];
+
+  __device__ __forceinline__ BackwardProduct(const unsigned* f, float* stage, float* r, float* b,
+                                             int l)
+      : Base(f, stage, l), res(r), in(stage), bias(b) {
+#pragma unroll
+    for (int t = 0; t < kGradTiles; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) g[t][q] = 0.f;
   }
+  __device__ __forceinline__ float& in_at(int row) { return in[row * kDirRowStride + lane]; }
+  __device__ __forceinline__ float& in_tan_at(int row) {
+    return in[row * kDirRowStride + 32 + lane];
+  }
+  __device__ __forceinline__ void second(int l) {
+    in = l == 4 ? act : res + (l == 0 ? 0 : l - 1) * kResBlock;
+  }
+  // B stays in the first block: the reverse's outputs go to the second
+  __device__ __forceinline__ void hold() {}
+  __device__ __forceinline__ void reverse(int l) {
+    warp_product<2, 8, kDirRowStride, BF16, kBlock<BF16>>(frag, rev_block(l, 0, 0), act, lane, c);
+  }
+  __device__ __forceinline__ void reverse0(int m) {
+    warp_product<2, 8, kDirRowStride, BF16, kBlock<BF16>>(frag, rev_block(0, 0, m), act, lane, c);
+  }
+  __device__ __forceinline__ void store_in() { store_acc<8, kDirRowStride>(in, c, lane); }
 
-  template <int L>
-  __device__ __forceinline__ void products(const float* a, const float* ta, const float* hbar,
-                                           const float* thbar) {
-    constexpr int in = layer_in(L), out = layer_out(L), steps = kChunk / 8;
-    float* st = region + stage_offset(L);
-    __syncthreads();  // the previous layer's products have read their staging
-#pragma unroll
-    for (int i = 0; i < in; ++i) {
-      st[i * kStageStride + tid] = a[i];
-      st[i * kStageStride + kChunk + tid] = ta[i];
-    }
-#pragma unroll
-    for (int o = 0; o < out; ++o) {
-      st[(in + o) * kStageStride + tid] = hbar[o];
-      st[(in + o) * kStageStride + kChunk + tid] = thbar[o];
-    }
-    __syncthreads();
-    const int lane = tid & 31, warp = tid >> 5;
+  // tiles T0 and T0 + 1 of dW; BIAS >= 0: where the layer's bias sums
+  // start (once per layer)
+  template <int T0, int BIAS>
+  __device__ __forceinline__ void grad_tiles() {
     const int gid = lane >> 2, t = lane & 3;
-    const int own = (warp >> 1) * kChunk, other = kChunk - own;  // this warp's half of K
-    const float* hb = st + in * kStageStride;
-    const bool row0 = gid < out, row1 = gid + 8 < out;
-    const float* a0 = hb + (row0 ? gid : 0) * kStageStride + t;
-    const float* a1 = hb + (row1 ? gid + 8 : 0) * kStageStride + t;
+    const float* a0 = act + gid * kDirRowStride;
+    const float* a1 = a0 + 8 * kDirRowStride;
     float bsum0 = 0.f, bsum1 = 0.f;  // rows gid and gid + 8 of the bias column
-    if constexpr (BF16) {
-      // A's fragment at k0: rows gid and gid + 8 at k0 + 2t and k0 + 2t + 1, rounded
-      auto load = [&](int k0, unsigned a[2], bool add_bias) {
-        const float x0 = row0 ? bf16_round(a0[k0 + t]) : 0.f;
-        const float x1 = row0 ? bf16_round(a0[k0 + t + 1]) : 0.f;
-        const float x2 = row1 ? bf16_round(a1[k0 + t]) : 0.f;
-        const float x3 = row1 ? bf16_round(a1[k0 + t + 1]) : 0.f;
-        if (add_bias) {
-          bsum0 += x0 + x1;
-          bsum1 += x2 + x3;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int k0 = 8 * s;
+      if constexpr (BF16) {
+        // A: rows gid and gid + 8 at k0 + 2t and k0 + 2t + 1; B: column k0 +
+        // 2t and k0 + 2t + 1 of input row 8 j + gid
+        const float2 lo = *reinterpret_cast<const float2*>(a0 + k0 + 2 * t);
+        const float2 hi = *reinterpret_cast<const float2*>(a1 + k0 + 2 * t);
+        if (s < 4) {
+          bsum0 += bf16_round(lo.x) + bf16_round(lo.y);
+          bsum1 += bf16_round(hi.x) + bf16_round(hi.y);
         }
-        a[0] = pack_bf16x2(x0, x1);
-        a[1] = pack_bf16x2(x2, x3);
-      };
-      // B's fragment at k0 from the staged row b (at column 2t)
-      auto bword = [&](const float* b, int k0) { return pack_bf16x2(b[k0], b[k0 + 1]); };
-      if constexpr (L == 0) {
-        const float* bfull = st + (warp * 8 + gid) * kStageStride + 2 * t;
-        const float* bhalf = st + ((4 + (warp & 1)) * 8 + gid) * kStageStride + 2 * t;
-#pragma unroll 2
-        for (int s = 0; s < steps; ++s) {
-          unsigned a[2];
-          load(own + 8 * s, a, true);
-          mma_bf16(acc[0], a, bword(bfull, own + 8 * s));
-          mma_bf16(acc[1], a, bword(bhalf, own + 8 * s));
-        }
-#pragma unroll 2
-        for (int s = 0; s < steps; ++s) {
-          unsigned a[2];
-          load(other + 8 * s, a, false);
-          mma_bf16(acc[0], a, bword(bfull, other + 8 * s));
-        }
+        const unsigned a[2] = {pack_bf16x2(lo.x, lo.y), pack_bf16x2(hi.x, hi.y)};
+        mma_rows<T0>(a, k0);
       } else {
-        const float* b = st + ((warp & 1) * 8 + gid) * kStageStride + 2 * t;
-#pragma unroll 2
-        for (int s = 0; s < steps; ++s) {
-          unsigned a[2];
-          load(own + 8 * s, a, true);
-          mma_bf16(acc[L + 1], a, bword(b, own + 8 * s));
-        }
-      }
-    } else {
-      // A's fragment at k0, split; every lane loads a valid row and selects
-      auto load_a = [&](int k0, unsigned ab[4], unsigned as[4], bool add_bias) {
-        const float x0 = a0[k0], x1 = a1[k0], x2 = a0[k0 + 4], x3 = a1[k0 + 4];
-        const float av[4] = {row0 ? x0 : 0.f, row1 ? x1 : 0.f, row0 ? x2 : 0.f, row1 ? x3 : 0.f};
-        if (add_bias) {
+        // A: (gid, t), (gid + 8, t), (gid, t + 4), (gid + 8, t + 4)
+        const float av[4] = {a0[k0 + t], a1[k0 + t], a0[k0 + t + 4], a1[k0 + t + 4]};
+        if (s < 4) {
           bsum0 += av[0] + av[2];
           bsum1 += av[1] + av[3];
         }
+        mma_rows<T0>(av, k0);
+      }
+    }
+    if constexpr (BIAS >= 0) {
+      bsum0 += __shfl_xor_sync(0xffffffffu, bsum0, 1);
+      bsum0 += __shfl_xor_sync(0xffffffffu, bsum0, 2);
+      bsum1 += __shfl_xor_sync(0xffffffffu, bsum1, 1);
+      bsum1 += __shfl_xor_sync(0xffffffffu, bsum1, 2);
+      if (t == 0) {
+        bias[BIAS + gid] += bsum0;
+        bias[BIAS + gid + 8] += bsum1;
+      }
+    }
+  }
+
+  // g[T0 + j] += A's fragment at k0 times B's of input rows 8 j + gid, j =
+  // 0, 1: BF16 two bf16x2 words (a), else four f32 values (split here)
+  template <int T0>
+  __device__ __forceinline__ void mma_rows(const unsigned a[2], int k0) {
+    const int gid = lane >> 2, t = lane & 3;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(av[q], ab[q], as[q]);
-      };
-      if constexpr (L == 0) {
-        const float* bfull = st + (warp * 8 + gid) * kStageStride + t;
-        const float* bhalf = st + ((4 + (warp & 1)) * 8 + gid) * kStageStride + t;
-#pragma unroll 2
-        for (int s = 0; s < steps; ++s) {
-          unsigned ab[4], as[4];
-          load_a(own + 8 * s, ab, as, true);
-          mma3(acc[0], ab, as, bfull, own + 8 * s);
-          mma3(acc[1], ab, as, bhalf, own + 8 * s);
-        }
-#pragma unroll 2
-        for (int s = 0; s < steps; ++s) {
-          unsigned ab[4], as[4];
-          load_a(other + 8 * s, ab, as, false);
-          mma3(acc[0], ab, as, bfull, other + 8 * s);
-        }
+    for (int j = 0; j < 2; ++j) {
+      const float2 b =
+          *reinterpret_cast<const float2*>(in + (8 * j + gid) * kDirRowStride + k0 + 2 * t);
+      mma_bf16(g[T0 + j], a, pack_bf16x2(b.x, b.y));
+    }
+  }
+  template <int T0>
+  __device__ __forceinline__ void mma_rows(const float av[4], int k0) {
+    const int gid = lane >> 2, t = lane & 3;
+    unsigned ab[4], as[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32_finite(av[q], ab[q], as[q]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* b = in + (8 * j + gid) * kDirRowStride + k0 + t;
+      unsigned bb[2], bs[2];
+      split_tf32_finite(b[0], bb[0], bs[0]);
+      split_tf32_finite(b[4], bb[1], bs[1]);
+      mma3_split(g[T0 + j], ab, as, bb, bs);
+    }
+  }
+
+  __device__ __forceinline__ void grad(int l, int m) {
+    switch (l == 0 ? m : 2 + l) {  // the same case in every lane
+      case 0: grad_tiles<0, 0>(); break;
+      case 1: grad_tiles<2, -1>(); break;
+      case 2: grad_tiles<4, -1>(); break;
+      case 3: grad_tiles<6, kHid>(); break;
+      case 4: grad_tiles<8, 2 * kHid>(); break;
+      default: grad_tiles<10, 3 * kHid>(); break;
+    }
+  }
+
+  // layer 4's tiles 12 and 13: A's one row is [hb | thb] over the warp's
+  // points, which lane gid = 0 takes from the lanes by shuffles
+  __device__ __forceinline__ void grad4(float hb, float thb) {
+    const int gid = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float v = s < 4 ? hb : thb;
+      const int k0 = 8 * s, src = 8 * (s & 3);
+      if constexpr (BF16) {
+        const float x0 = __shfl_sync(0xffffffffu, v, src + 2 * t);
+        const float x1 = __shfl_sync(0xffffffffu, v, src + 2 * t + 1);
+        const unsigned a[2] = {gid == 0 ? pack_bf16x2(x0, x1) : 0u, 0u};
+        mma_rows<12>(a, k0);
       } else {
-        const float* b = st + ((warp & 1) * 8 + gid) * kStageStride + t;
-#pragma unroll 2
-        for (int s = 0; s < steps; ++s) {
-          unsigned ab[4], as[4];
-          load_a(own + 8 * s, ab, as, true);
-          mma3(acc[L + 1], ab, as, b, own + 8 * s);
-        }
+        const float x0 = __shfl_sync(0xffffffffu, v, src + t);
+        const float x4 = __shfl_sync(0xffffffffu, v, src + t + 4);
+        const float av[4] = {gid == 0 ? x0 : 0.f, 0.f, gid == 0 ? x4 : 0.f, 0.f};
+        mma_rows<12>(av, k0);
       }
     }
-    // warp 0's own half is the primal one: its quads' sums are the bias column's
-    bsum0 += __shfl_xor_sync(0xffffffffu, bsum0, 1);
-    bsum0 += __shfl_xor_sync(0xffffffffu, bsum0, 2);
-    bsum1 += __shfl_xor_sync(0xffffffffu, bsum1, 1);
-    bsum1 += __shfl_xor_sync(0xffffffffu, bsum1, 2);
-    if (warp == 0 && t == 0) {
-      if (row0) bias[L * kHid + gid] += bsum0;
-      if (row1) bias[L * kHid + gid + 8] += bsum1;
-    }
+    float b = operand<BF16>(hb);  // the bias column: hb summed over the warp's points
+#pragma unroll
+    for (int d = 16; d >= 1; d >>= 1) b += __shfl_xor_sync(0xffffffffu, b, d);
+    if (lane == 0) bias[4 * kHid] += b;
   }
 
-  // host-callable in name only: instance_backward is host-compilable
-  __host__ __device__ __forceinline__ void layer(int l, int, int, const float* a, const float* ta,
-                                                 const float* hbar, const float* thbar) {
-#if defined(__CUDA_ARCH__)
-    switch (l) {  // the same layer in every thread
-      case 0: products<0>(a, ta, hbar, thbar); break;
-      case 1: products<1>(a, ta, hbar, thbar); break;
-      case 2: products<2>(a, ta, hbar, thbar); break;
-      case 3: products<3>(a, ta, hbar, thbar); break;
-      default: products<4>(a, ta, hbar, thbar); break;
-    }
-#endif
-  }
-
-  // tile j of layer L (c: this lane's fragment) into the partial row
-  __device__ void put(float* row, int L, int j, const float c[4]) const {
-    const int in = layer_in(L), out = layer_out(L);
-    const int gid = (tid & 31) >> 2, t = tid & 3;
-    for (int q = 0; q < 4; ++q) {
-      const int m = gid + (q >= 2 ? 8 : 0), n = j * 8 + 2 * t + (q & 1);
-      if (m < out) row[layer_offset(L) + m * (in + 1) + n] = c[q];
-    }
-  }
-
-  // this CTA's dW into its partial row; scratch: 1280 floats of shared
-  // memory that nothing else uses now. Every thread calls it.
-  __device__ void store(float* row, float* scratch) const {
-    const int lane = tid & 31, warp = tid >> 5, pair = warp & 1;
-    auto at = [&](int s, int q) { return scratch + ((pair * 5 + s - 1) * 4 + q) * 32 + lane; };
-    if (warp >= 2) {  // the second halves of K
-      for (int s = 1; s < kSlots; ++s)
-        for (int q = 0; q < 4; ++q) *at(s, q) = acc[s][q];
-    }
-    __syncthreads();
-    put(row, 0, warp, acc[0]);
-    if (warp < 2) {
-      for (int s = 1; s < kSlots; ++s) {
-        float c[4];
-        for (int q = 0; q < 4; ++q) c[q] = acc[s][q] + *at(s, q);
-        if (s == 1)
-          put(row, 0, 4 + pair, c);
-        else
-          put(row, s - 1, pair, c);
-      }
-    }
-    for (int e = tid; e < kBias; e += kChunk) {
-      const int L = e / kHid, o = e % kHid;
-      row[layer_offset(L) + o * (layer_in(L) + 1) + layer_in(L)] = bias[e];
-    }
+  // the lane's tiles into dst [kGradTiles][4][32]
+  __device__ __forceinline__ void put(float* dst) const {
+#pragma unroll
+    for (int t = 0; t < kGradTiles; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dst[(t * 4 + q) * 32 + lane] = g[t][q];
   }
 };
 
+// Where entry e of a warp's tiles (BackwardProduct::put: tile, fragment
+// register q, lane) lies in the row [dW 1617 | ...], or -1 for a padding
+// row of layer 4's tiles
+__device__ __forceinline__ int grad_index(int e) {
+  const int tile = e / kTileWords, q = (e / 32) & 3, lane = e & 31;
+  const int o = (lane >> 2) + (q >= 2 ? 8 : 0), n = 2 * (lane & 3) + (q & 1);
+  const int l = tile < 6 ? 0 : tile < 12 ? 1 + (tile - 6) / 2 : 4;
+  const int i = (tile < 6 ? tile : tile < 12 ? (tile - 6) % 2 : tile - 12) * 8 + n;
+  return o < layer_out(l) ? layer_offset(l) + o * (layer_in(l) + 1) + i : -1;
+}
+
 // Stage 1: d_bar and td_bar of every instance at every point, [F, N, P].
-// BF16: the default precision (the weights rounded as they are staged).
+// BF16: the default precision (with the JAX body's rounded 1 / scale).
 template <bool RDF, bool BF16>
-__global__ void __launch_bounds__(kUnionThreads)
+__global__ void __launch_bounds__(kUnionThreads, RDF ? 2 : 1)
 union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float* __restrict__ dg,
                        const float* __restrict__ du, const float* __restrict__ dw,
                        const float* __restrict__ loc, const float* __restrict__ rot,
@@ -348,7 +352,7 @@ union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float*
                        const float* __restrict__ weights, const float* __restrict__ tau_ptr,
                        float inv_scale, const int* __restrict__ mask, int mask_tile,
                        float* __restrict__ dbar, float* __restrict__ tdbar) {
-  extern __shared__ float wts[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ unsigned char active[kMaxInstances];
   const size_t f = blockIdx.y;
   pos += f * P * 3;
@@ -363,50 +367,77 @@ union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float*
   dbar += f * N * P;
   tdbar += f * N * P;
   if (mask != nullptr) mask += f * ((N + kGroup - 1) / kGroup) * ((P + mask_tile - 1) / mask_tile);
-  const int tid = threadIdx.x;
-  const int p = blockIdx.x * blockDim.x + tid;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int p0 = blockIdx.x * kUnionThreads, p = p0 + tid;
   const bool live = p < P;
   const int pp = live ? p : P - 1;
-  // skip mode: the groups this point's tile keeps (the same in a warp)
+  // skip mode: the groups this CTA evaluates and those this point's tile keeps
+  const unsigned cta_keep =
+      kept_groups(mask, N, P, mask_tile, p0, min(p0 + kUnionThreads, P) - 1);
   const unsigned point_keep = kept_groups(mask, N, P, mask_tile, pp, pp);
   const float tau = *tau_ptr;
   bool any_valid = false;
   for (int i = 0; i < N; ++i) any_valid |= valid[i] > 0.5f;
-  for (int i = tid; i < N; i += blockDim.x) active[i] = instance_active(valid[i], any_valid);
+  for (int i = tid; i < N; i += kUnionThreads) active[i] = instance_active(valid[i], any_valid);
   __syncthreads();
+  // a thread past the end runs the last point, unwritten
   const float x[3] = {pos[3 * pp], pos[3 * pp + 1], pos[3 * pp + 2]};
   const float v[3] = {dg[3 * pp], dg[3 * pp + 1], dg[3 * pp + 2]};
 
-  for (int g0 = 0; g0 < N; g0 += kGroup) {
-    const int gn = min(kGroup, N - g0);
-    const bool keep = group_kept(point_keep, g0);
-    if constexpr (RDF) {
-      // the group's weights, unless every point of the block drops it
-      if (__syncthreads_or(keep)) {
-        for (int e = tid; e < gn * kWeights; e += blockDim.x)
-          wts[e] = operand<BF16>(weights[(size_t)g0 * kWeights + e]);
-        __syncthreads();
+  if constexpr (RDF) {
+    unsigned* frag = reinterpret_cast<unsigned*>(smem);
+    float* stage = smem + UnionLayout::kStage + warp * kStageRows;
+    float* raw = smem + UnionLayout::kRaw;
+    float* misc = smem + UnionLayout::kMiscAt;
+    // the instances whose field this CTA evaluates: active, in a kept group
+    auto computed = [&](int i) { return active[i] && group_kept(cta_keep, i); };
+    auto next_computed = [&](int i) {
+      for (++i; i < N && !computed(i); ++i) {
       }
-    }
-    for (int i = g0; i < g0 + gn; ++i) {
-      if (!active[i]) continue;
-      if (!keep) {  // the skip mode's pass 1: a dropped group reads kSkipDistance
-        if (live) {
-          dbar[(size_t)i * P + p] = kSkipDistance;
-          tdbar[(size_t)i * P + p] = 0.f;
-        }
-        continue;
+      return i;
+    };
+    auto prefetch = [&](int i) {
+      const float* src = weights + (size_t)i * kWeights;
+      for (int e = tid; e < kWeights; e += kUnionThreads) cp_async4(raw + e, src + e);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+    const int first = next_computed(-1);
+    if (first < N) prefetch(first);
+    for (int i = 0; i < N; ++i) {
+      if (!active[i]) continue;  // uniform over the CTA
+      float d = kSkipDistance, td = 0.f;
+      if (group_kept(cta_keep, i)) {  // uniform over the CTA
+        const int next = next_computed(i);
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();  // raw holds instance i; every warp is done with the last one's fragments
+        for (int b = warp; b < kFwdBlocks; b += kUnionWarps) convert_block<BF16>(raw, frag, b, lane);
+        for (int e = tid; e < kRevMisc; e += kUnionThreads) misc[e] = operand<BF16>(raw[misc_index(e)]);
+        __syncthreads();  // fragments ready, raw free
+        if (next < N) prefetch(next);
+        WarpDirProduct<BF16> prod(frag, stage, lane);
+        d = instance_dir<BF16>(x, v, loc + 3 * i, rot + 9 * i, half + 3 * i, misc, inv_scale, prod,
+                               td);
       }
-      const float* Ri = rot + 9 * i;
-      float tl[1][3];
-      for (int c = 0; c < 3; ++c) tl[0][c] = v[0] * Ri[c] + v[1] * Ri[3 + c] + v[2] * Ri[6 + c];
-      float td[1];
-      const float d = instance_forward<1, BF16>(x, loc + 3 * i, Ri, half + 3 * i,
-                                                RDF ? wts + (i - g0) * kWeights : nullptr,
-                                                inv_scale, tl, td);
+      if (!group_kept(point_keep, i)) {  // the skip mode's pass 1: kSkipDistance
+        d = kSkipDistance;
+        td = 0.f;
+      }
       if (live) {
         dbar[(size_t)i * P + p] = d;
-        tdbar[(size_t)i * P + p] = td[0];
+        tdbar[(size_t)i * P + p] = td;
+      }
+    }
+  } else {
+    for (int i = 0; i < N; ++i) {
+      if (!active[i]) continue;
+      float d = kSkipDistance, td = 0.f;
+      if (group_kept(point_keep, i)) {
+        float tl[3];
+        d = box_dir(BoxGrad(x, loc + 3 * i, rot + 9 * i, half + 3 * i), v, rot + 9 * i, tl, td);
+      }
+      if (live) {
+        dbar[(size_t)i * P + p] = d;
+        tdbar[(size_t)i * P + p] = td;
       }
     }
   }
@@ -415,7 +446,7 @@ union_cotangent_kernel(int P, int N, const float* __restrict__ pos, const float*
 }
 
 // Stage 2: one instance of one frame per CTA, grid (tiles, N, F). BF16: the
-// default precision (the weights rounded once staged).
+// default precision.
 template <bool RDF, bool BF16>
 __global__ void __launch_bounds__(kChunk, 2)
 instance_backward_kernel(int P, int N, const float* __restrict__ pos,
@@ -425,12 +456,13 @@ instance_backward_kernel(int P, int N, const float* __restrict__ pos,
                          float inv_scale, const int* __restrict__ mask, int mask_tile,
                          const float* __restrict__ dbar, const float* __restrict__ tdbar,
                          float* __restrict__ partial) {
+  using L = BackwardLayout<BF16>;
   extern __shared__ __align__(16) float smem[];
   constexpr int row = RDF ? kParams : kGeo;
   const int tile = blockIdx.x, i = blockIdx.y;
   const size_t f = blockIdx.z;
   const size_t fi = f * N + i;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* out_row = partial + (fi * gridDim.x + tile) * row;
   valid += f * N;
   const int num_chunks = (P + kChunk - 1) / kChunk;
@@ -460,54 +492,87 @@ instance_backward_kernel(int P, int N, const float* __restrict__ pos,
   dbar += fi * P;
   tdbar += fi * P;
 
-  float* wts = smem;                                // RDF: [Padded::kSize]
-  float* box = smem + (RDF ? Padded::kSize : 0);    // loc 3 | rot 9 | half 3 | pad
-  float* bias = box + kGeo + 1;                     // RDF: [kBias + 15]
-  float* region = bias + (RDF ? kBias + 15 : 0);    // residuals and mma staging
-  if constexpr (RDF) {
-    for (int e = tid; e < kBias; e += kChunk) bias[e] = 0.f;
-    const float* src = weights + fi * kWeights;
-    for (int e = tid; e < kWeights; e += kChunk) cp_async4(wts + padded_index(e), src + e);
-  }
+  float* box = smem + (RDF ? L::kBox : 0);
+  float* region = RDF ? smem + L::kColumns : smem + 16;  // residual blocks, then the sums
   if (tid < 3) {
-    cp_async4(box + tid, loc + fi * 3 + tid);
-    cp_async4(box + 12 + tid, half + fi * 3 + tid);
+    box[tid] = loc[fi * 3 + tid];
+    box[12 + tid] = half[fi * 3 + tid];
   }
-  if (tid < 9) cp_async4(box + 3 + tid, rot + fi * 9 + tid);
-  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
+  if (tid < 9) box[3 + tid] = rot[fi * 9 + tid];
+  if constexpr (RDF) {
+    const float* w = weights + fi * kWeights;
+    for (int b = warp; b < kBwdBlocks; b += kWarps)
+      convert_block<BF16, kBlock<BF16>>(w, reinterpret_cast<unsigned*>(smem), b, lane);
+    for (int e = tid; e < kRevMisc; e += kChunk) smem[L::kMiscAt + e] = operand<BF16>(w[misc_index(e)]);
+    for (int e = tid; e < kWarps * kBiasStride; e += kChunk) smem[L::kBiasAt + e] = 0.f;
+  }
   __syncthreads();
-  if constexpr (RDF && BF16) {
-    for (int e = tid; e < kWeights; e += kChunk)
-      wts[padded_index(e)] = bf16_round(wts[padded_index(e)]);
-    __syncthreads();
-  }
 
   float geo[kGeo];
   for (int k = 0; k < kGeo; ++k) geo[k] = 0.f;
-  MmaSink<BF16> sink(region, bias, tid);
-  for (int c = 0; c < kChunksPerCta; ++c) {
-    const int chunk = tile * kChunksPerCta + c;
-    if (chunk >= num_chunks) break;     // uniform over the CTA
-    if (!chunk_kept(chunk)) continue;   // uniform over the CTA
-    const int p = chunk * kChunk + tid;
+  auto point = [&](int c, float x[3], float v[3], float& db, float& tdb) {
+    const int p = (tile * kChunksPerCta + c) * kChunk + tid;
     const bool live = p < P;
     const int pp = live ? p : P - 1;
-    const float x[3] = {pos[3 * pp], pos[3 * pp + 1], pos[3 * pp + 2]};
-    const float v[3] = {dg[3 * pp], dg[3 * pp + 1], dg[3 * pp + 2]};
+    for (int k = 0; k < 3; ++k) {
+      x[k] = pos[3 * pp + k];
+      v[k] = dg[3 * pp + k];
+    }
     // a point past the end carries zero cotangents, so it adds exact zeros
-    const float db = live ? dbar[p] : 0.f, tdb = live ? tdbar[p] : 0.f;
-    instance_backward<BF16>(x, v, box, box + 3, box + 12, RDF ? wts : nullptr, inv_scale, db, tdb,
-                            geo, sink, ColumnStore{region + tid, kChunk});
-    if constexpr (RDF) __syncthreads();  // the next residuals overwrite layer 0's staging
+    db = live ? dbar[p] : 0.f;
+    tdb = live ? tdbar[p] : 0.f;
+  };
+  auto walks = [&](int c) {  // uniform over the CTA
+    const int chunk = tile * kChunksPerCta + c;
+    return chunk < num_chunks && chunk_kept(chunk);
+  };
+  if constexpr (RDF) {
+    float* res = region + warp * kResLayers * kResBlock;
+    BackwardProduct<BF16> prod(reinterpret_cast<const unsigned*>(smem),
+                               smem + L::kStage + warp * kStageRows, res,
+                               smem + L::kBiasAt + warp * kBiasStride, lane);
+    const ColumnStore store{res + lane, 32};
+    for (int c = 0; c < kChunksPerCta; ++c) {
+      if (!walks(c)) continue;
+      float x[3], v[3], db, tdb;
+      point(c, x, v, db, tdb);
+      instance_backward<BF16>(x, v, box, box + 3, box + 12, smem + L::kMiscAt, inv_scale, db,
+                              tdb, geo, prod, store);
+    }
+    __syncthreads();  // every warp is done with its residual blocks
+    prod.put(region + warp * kGradTiles * kTileWords);
+  } else {
+    for (int c = 0; c < kChunksPerCta; ++c) {
+      if (!walks(c)) continue;
+      float x[3], v[3], db, tdb, lbar[3] = {0.f, 0.f, 0.f}, tlbar[3] = {0.f, 0.f, 0.f};
+      point(c, x, v, db, tdb);
+      box_backward(x, v, box, box + 3, box + 12, db, tdb, lbar, tlbar, geo);
+    }
   }
 
+  // the epilogue: the warps' dW tiles and bias sums in warp order, the box
+  // cotangents in thread order
+  float* sums = region + (RDF ? kWarps * kGradTiles * kTileWords : 0);
+  for (int k = 0; k < kGeo; ++k) sums[k * kChunk + tid] = geo[k];
   __syncthreads();
-  for (int k = 0; k < kGeo; ++k) region[k * kChunk + tid] = geo[k];
-  if constexpr (RDF) sink.store(out_row, region + kGeo * kChunk);  // syncs the block
-  __syncthreads();
+  if constexpr (RDF) {
+    for (int e = tid; e < kGradTiles * kTileWords; e += kChunk) {
+      const int at = grad_index(e);
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += region[w * kGradTiles * kTileWords + e];
+      if (at >= 0) out_row[at] = s;
+    }
+    const float* bias = smem + L::kBiasAt;
+    for (int e = tid; e < kBias; e += kChunk) {
+      const int l = e / kHid, o = e % kHid;
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += bias[w * kBiasStride + e];
+      out_row[layer_offset(l) + o * (layer_in(l) + 1) + layer_in(l)] = s;
+    }
+  }
   if (tid < kGeo) {
     float s = 0.f;
-    for (int q = 0; q < kChunk; ++q) s += region[tid * kChunk + q];
+    for (int q = 0; q < kChunk; ++q) s += sums[tid * kChunk + q];
     out_row[row - kGeo + tid] = s;
   }
 }
@@ -525,14 +590,33 @@ __global__ void reduce_partials_kernel(int tiles, int row, const float* __restri
   out[fi * row + e] = s;
 }
 
-inline size_t union_smem(int N, bool rdf) {
-  return rdf ? (size_t)(N < kGroup ? N : kGroup) * kWeights * sizeof(float) : 0;
+inline size_t union_smem(bool rdf) { return rdf ? UnionLayout::kSize * sizeof(float) : 0; }
+
+template <bool RDF, bool BF16>
+size_t instance_smem() {
+  return (RDF ? BackwardLayout<BF16>::kSize : 16 + kGeo * kChunk) * sizeof(float);
 }
 
-inline size_t instance_smem(bool rdf) {
-  return (size_t)((rdf ? Padded::kSize + kBias + 15 + kRegion : 0) + kGeo + 1 +
-                  (rdf ? 0 : kGeo * kChunk)) *
-         sizeof(float);
+template <bool RDF, bool BF16>
+cudaError_t backward_attributes() {
+  // both stages take the largest shared-memory carveout, so that the SMs
+  // need no reconfiguration between them
+  cudaError_t err = cudaFuncSetAttribute(union_cotangent_kernel<RDF, BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)union_smem(RDF));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(instance_backward_kernel<RDF, BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)instance_smem<RDF, BF16>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(union_cotangent_kernel<RDF, BF16>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(instance_backward_kernel<RDF, BF16>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 template <bool RDF, bool BF16>
@@ -542,28 +626,14 @@ cudaError_t launch_backward(int F, int P, int N, const float* pos, const float* 
                             const float* tau, float inv_scale, const int* mask, int mask_tile,
                             int tiles, float* dbar, float* tdbar, float* partial, float* out,
                             cudaStream_t s) {
-  const size_t smem1 = union_smem(N, RDF), smem2 = instance_smem(RDF);
-  // both stages take the largest shared-memory carveout, so that the SMs
-  // need no reconfiguration between them
-  cudaError_t err = cudaFuncSetAttribute(union_cotangent_kernel<RDF, BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(instance_backward_kernel<RDF, BF16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(union_cotangent_kernel<RDF, BF16>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(instance_backward_kernel<RDF, BF16>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  cudaError_t err = backward_attributes<RDF, BF16>();
   if (err != cudaSuccess) return err;
   const dim3 grid1((P + kUnionThreads - 1) / kUnionThreads, F);
-  union_cotangent_kernel<RDF, BF16><<<grid1, kUnionThreads, smem1, s>>>(
+  union_cotangent_kernel<RDF, BF16><<<grid1, kUnionThreads, union_smem(RDF), s>>>(
       P, N, pos, dg, du, dw, loc, rot, half, valid, weights, tau, inv_scale, mask, mask_tile,
       dbar, tdbar);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem2 = instance_smem<RDF, BF16>();
   instance_backward_kernel<RDF, BF16><<<dim3(tiles, N, F), kChunk, smem2, s>>>(
       P, N, pos, dg, loc, rot, half, valid, weights, inv_scale, mask, mask_tile, dbar, tdbar,
       partial);
@@ -573,7 +643,36 @@ cudaError_t launch_backward(int F, int P, int N, const float* pos, const float* 
   return cudaGetLastError();
 }
 
+template <bool RDF, bool BF16>
+cudaError_t backward_occupancy(int* ctas1, int* ctas2) {
+  cudaError_t err = backward_attributes<RDF, BF16>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas1, union_cotangent_kernel<RDF, BF16>,
+                                                        kUnionThreads, union_smem(RDF));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas2, instance_backward_kernel<RDF, BF16>, kChunk, instance_smem<RDF, BF16>());
+  return err;
+}
+
 }  // namespace vsrd
+
+// Each stage's CTA size, dynamic shared memory (bytes) and CTAs per SM:
+// info [6] = {threads, smem, ctas} of stage 1, then of stage 2, for the
+// residual field (rdf) or box-only and the precision (bf16).
+extern "C" int vsrd_fused_backward_info(int rdf, int bf16, int* info) {
+  using namespace vsrd;
+  info[0] = kUnionThreads;
+  info[1] = (int)union_smem(rdf);
+  info[3] = kChunk;
+  if (!rdf) {
+    info[4] = (int)instance_smem<false, false>();
+    return (int)backward_occupancy<false, false>(info + 2, info + 5);
+  }
+  info[4] = (int)(bf16 ? instance_smem<true, true>() : instance_smem<true, false>());
+  return (int)(bf16 ? backward_occupancy<true, true>(info + 2, info + 5)
+                    : backward_occupancy<true, false>(info + 2, info + 5));
+}
 
 // Stage-2 CTAs per (frame, instance) for P points: the partial buffer
 // holds F x N x tiles rows.

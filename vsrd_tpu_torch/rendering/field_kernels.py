@@ -184,11 +184,13 @@ def build_library() -> ctypes.CDLL:
     lib.vsrd_fused_backward_tiles.argtypes = [i32]
     lib.vsrd_rev_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
     lib.vsrd_dir_forward_info.argtypes = [i32, i32, ptr, ptr, ptr]
+    lib.vsrd_fused_backward_info.argtypes = [i32, i32, ptr]
     lib.vsrd_jv_assignment.argtypes = [i32, i32, ptr, ptr, ptr]   # ops/matching.py
     lib.vsrd_sphere_trace.argtypes = [i32] * 4 + [ptr] * 8 + [f32] * 4 + [ptr] * 7
     for fn in (lib.vsrd_fused_forward, lib.vsrd_dir_forward, lib.vsrd_fused_backward,
                lib.vsrd_fused_backward_tiles, lib.vsrd_rev_forward_info,
-               lib.vsrd_dir_forward_info, lib.vsrd_jv_assignment, lib.vsrd_sphere_trace):
+               lib.vsrd_dir_forward_info, lib.vsrd_fused_backward_info,
+               lib.vsrd_jv_assignment, lib.vsrd_sphere_trace):
         fn.restype = i32
     _library = lib
     return lib
@@ -438,6 +440,16 @@ def dir_forward_info(num_instances: int, rdf: bool = True) -> tuple[int, int, in
     and CTAs per SM on the current card, for ``num_instances``."""
     return _launch_info(build_library().vsrd_dir_forward_info, "dir_forward_info",
                         num_instances, rdf)
+
+
+def backward_info(rdf: bool = True, precision: str = "highest"
+                  ) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """The K2/K4c kernels' threads per CTA, dynamic shared memory in bytes
+    and CTAs per SM on the current card: (stage 1, stage 2)."""
+    info = (ctypes.c_int * 6)()
+    _check(build_library().vsrd_fused_backward_info(
+        int(rdf), int(fused_field.check_precision(precision)), info), "fused_backward_info")
+    return tuple(info[:3]), tuple(info[3:])
 
 
 def reset_launch_counts():

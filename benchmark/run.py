@@ -43,6 +43,52 @@ the last line of standard output is the result.
 The run fails (no result) without a CUDA card, with fewer cards than the
 cell asks for, without the port beside this folder, or when JAX, flax or
 the JAX package has been imported.
+
+**A cell of another kind: the run-module contract.** A configuration file
+that carries ``"run": "<name>"`` is run by ``benchmark/runs/<name>.py``
+(found under the run's root, loaded by path) instead of the frame
+optimization above; everything else in this file stays as it is. So a later
+model or path comes in as new files alone: its configuration (with
+``"run"``), its traffic (``traffic/<name>.json``, whatever keys its module
+reads), its limits (``checks/<cell>.json``), its run module, its plain
+reference beside ``reference.py`` and its metric readers, plus entries in
+``BENCHMARK.json``. ``runs/drive.py`` is the worked example. The module
+defines:
+
+* ``run_cell(workload, seed, seconds, trace, device, sizes, root)``, which
+  returns ``(result, chunks)`` as ``run_cell`` below does. ``result`` has
+  the keys ``correct`` (bool), ``attempted`` and ``failed`` (counts of the
+  window's work), ``metrics`` (``{name: {"value", "unit"}}``: with ``trace``
+  false the cell's end-to-end metrics that it measured, ``setup_s`` among
+  them, and with ``trace`` true its per-layer metrics, each read by
+  ``read_metric(name, context)``), ``device`` (``platform``, ``kind``,
+  ``count``, ``memory_peak_bytes``, and with ``trace`` on the card
+  ``busy_s`` and ``window_s``), optionally ``breakdown``
+  (``{"device_ops": [[name, s], ...], "idle_gaps": [[name, s], ...]}``, at
+  most 10 entries each, ``trace.breakdown``) and, last, ``checks``
+  (``{number: {"value", "limit"}}``, every number compared). ``chunks``
+  maps a name to a list of seconds that ``main`` prints on standard error;
+  ``device`` is ``"cuda"`` on the card and ``"cpu"`` in a rehearsal, where
+  ``sizes`` overrides configuration keys. ``setup_s`` counts from the
+  process's start, ``START`` of ``__main__`` where that is this file (the
+  module's own ``from benchmark import run`` loads a second copy, later);
+* ``NUMBERS``: the names of the numbers that its ``checks`` may compare,
+  each of which its cell's limits file holds;
+* ``named_files(spec, root)``: the files it reads by name besides the
+  cell's configuration, traffic and limits (``tests/test_bench_rehearsal.py``
+  holds them present).
+
+``main`` does the rest for every cell: the card's presence and count before
+the run, the chunks on standard error, the check that no JAX module was
+imported, each compared number beside its limit as the last lines of
+standard error and the result as the last line of standard output.
+
+The per-layer readers (``metrics/<name>.py``, ``read(context)``, returning
+``None`` where the run holds nothing to read) get the run module's own
+``context``. Here it has ``config`` (the configuration as run), ``frames``,
+``trace`` (per phase, the profiled chunk's summary, ``trace.summarize``;
+``None`` untraced or without a card), ``step_ms`` (per phase) and
+``frame_s``; ``runs/drive.py`` passes ``config``, ``trace`` and ``drive``.
 """
 
 import time
@@ -52,6 +98,7 @@ START = time.perf_counter()
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import gc  # noqa: E402
+import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -451,9 +498,23 @@ def free_program(c: Cell) -> None:
         torch.cuda.empty_cache()
 
 
+def run_module(name: str, root: Path = ROOT):
+    """``benchmark/runs/<name>.py`` under ``root``, loaded by path."""
+    spec = importlib.util.spec_from_file_location(f"benchmark_runs_{name}",
+                                                  root / "benchmark" / "runs" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
              sizes: dict | None = None, root: Path = ROOT) -> dict:
-    """One run of ``workload``: the result, its compared numbers last."""
+    """One run of ``workload``: the result, its compared numbers last. A
+    configuration that names a run module is run by it."""
+    own_run = load_spec(workload, root)["config"].get("run")
+    if own_run is not None:
+        return run_module(own_run, root).run_cell(workload, seed, seconds, trace, device, sizes,
+                                                  root)
     import torch
     from benchmark import check, trace as tr
 

@@ -28,8 +28,16 @@ def test_every_named_file_is_there():
         assert (ROOT / cfg["file"]).is_file()
     for cell in bench["workloads"]:
         spec = run.load_spec(cell["name"])
-        assert spec["traffic"]["frames"] >= 1
-        assert set(check.NUMBERS) <= set(spec["limits"])
+        own_run = spec["config"].get("run")
+        if own_run is None:
+            assert spec["traffic"]["frames"] >= 1
+            assert set(check.NUMBERS) <= set(spec["limits"])
+        else:
+            # a cell of another kind: the files and limits its run module declares
+            module = run.run_module(own_run)
+            for path in module.named_files(spec):
+                assert path.is_file(), path
+            assert set(module.NUMBERS) <= set(spec["limits"])
     for metric in bench["per_layer"]:
         assert (ROOT / "benchmark" / "metrics" / f"{metric['name']}.py").is_file()
         # every cell that reads the metric reports the end-to-end metric it moves

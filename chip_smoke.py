@@ -1420,7 +1420,8 @@ def detr_model_phase(card: str) -> None:
     }
 
     def run(deformable, device, dtype, rows):
-        model = detr3d.make_detector(deformable, seed=0, device="cpu").to(device, dtype)
+        model = detr3d.make_detector("deformable" if deformable else "detr3d", seed=0,
+                                     device="cpu").to(device, dtype)
         on = {key: value.to(device, dtype) if value.is_floating_point() else value.to(device)
               for key, value in batch.items()}
         start = time.perf_counter()

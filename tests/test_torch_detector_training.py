@@ -254,10 +254,45 @@ def test_cli_trains_on_the_cpu_and_its_checkpoint_runs_in_flax(tmp_path, capsys,
     images = np.random.default_rng(0).random((1, 48, 64, 3)).astype(np.float32)
     k = np.asarray([[40.0, 0, 32], [0, 40.0, 24], [0, 0, 1]], np.float32)[None]
     want = jmodel.apply(flax_tree, images, k)
-    port = tdetr.make_detector(deformable, device="cpu", **kwargs)
+    port = tdetr.make_detector("deformable" if deformable else "detr3d", device="cpu", **kwargs)
     port.load_state_dict(convert.detector_params_from_jax(flax_tree, "cpu"))
     with torch.no_grad():
         got = port(torch.from_numpy(images), torch.from_numpy(k))
     for key in ("logits", "boxes_2d", "boxes_3d"):
         w = np.asarray(want[key])
         assert np.abs(got[key].numpy() - w).max() <= LOSS_TOL * np.abs(w).max(), key
+
+
+def test_cli_trains_the_published_detr_on_the_cpu(tmp_path, capsys):
+    """``--arch detr-r50``: the published model (ResNet-50 at its widths, a cut
+    transformer here) through the normal CLI path, with its two learning
+    rates and the clip; its checkpoint holds the port's state_dict, which
+    loads back into the model."""
+    root = str(tmp_path / "kitti")
+    _pseudo_labelled_tree(root)
+    out_dir = str(tmp_path / "detr_ckpt")
+    argv = ["--root_dirname", root, "--ckpt_dirname", "ckpts/vsrd", "--out_dirname", out_dir,
+            "--num_steps", "2", "--batch_size", "2", "--height", "48", "--width", "64",
+            "--max_boxes", "4", "--log_intervals", "1", "--eval_intervals", "2",
+            "--holdout_fraction", "0", "--confidence_threshold", "0.0", "--device", "cpu",
+            "--arch", "detr-r50", "--num_queries", "8", "--num_encoder_layers", "1",
+            "--num_decoder_layers", "1"]
+    history = ttrain.main(argv)
+    stdout = capsys.readouterr().out
+    assert len(history["losses"]) == 2 and np.isfinite(history["losses"]).all()
+    assert any(line.startswith("eval step 2:") for line in stdout.splitlines())
+    ckpt = jsaver.load_checkpoint(history["checkpoint"])
+    assert str(ckpt["config"]["model"]) == "PublishedDETR3D"
+    assert int(ckpt["config"]["hidden_dim"]) == 256 and int(ckpt["config"]["num_heads"]) == 8
+    state = ckpt["models"]["detector"]
+    model = tdetr.make_detector(arch="detr-r50", device="cpu", num_queries=8,
+                                num_encoder_layers=1, num_decoder_layers=1)
+    assert set(state) == set(model.state_dict())
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()})
+    images = torch.rand(1, 48, 64, 3)
+    k = torch.tensor([[[40.0, 0, 32], [0, 40.0, 24], [0, 0, 1]]])
+    with torch.no_grad():
+        assert torch.isfinite(model(images, k)["boxes_3d"]).all()
+    # --deformable is --arch deformable, with the JAX CLI's widths
+    args = ttrain.parse_args(argv[:-8] + ["--deformable"])
+    assert args.arch == "deformable" and args.num_queries == 50

@@ -70,7 +70,7 @@ def _jax_model(deformable):
 
 
 def _torch_model(deformable, flax_params):
-    model = tdetr.make_detector(deformable, device="cpu", **SMALL,
+    model = tdetr.make_detector("deformable" if deformable else "detr3d", device="cpu", **SMALL,
                                 **({"num_samples": 4} if deformable else {}))
     model.load_state_dict(convert.detector_params_from_jax(flax_params, "cpu"))
     return model
@@ -131,10 +131,22 @@ def _jax_loss(monkeypatch, outputs, batch, focal):
     return float(total), {k: float(v) for k, v in scalars.items()}, solver
 
 
-def _recorded(solver, cost):
-    """The recorded level whose cost is ``cost``'s (a callback's order
-    inside a transformation is not promised): its cost and assignment."""
-    index = int(np.argmin([np.abs(c - cost).max() for c in solver.costs]))
+def _valid_columns(cost, valid):
+    """A ``[B, Q, Q]`` cost on the valid target columns, 0 elsewhere: the
+    port pads with 0 and the JAX package with ``PAD_COST``, and a uniform pad
+    gives the same matching of the valid targets."""
+    valid = np.asarray(valid)
+    mask = np.zeros(cost.shape, bool)
+    mask[:, :, :valid.shape[1]] = valid[:, None, :]
+    return np.where(mask, cost, 0.0)
+
+
+def _recorded(solver, cost, valid):
+    """The recorded level whose cost is ``cost``'s on the valid columns (a
+    callback's order inside a transformation is not promised): its cost
+    and assignment."""
+    index = int(np.argmin([np.abs(_valid_columns(c - cost, valid)).max()
+                           for c in solver.costs]))
     return solver.costs[index], solver.assignments[index]
 
 
@@ -205,8 +217,9 @@ def test_detr_loss_with_aux_levels_matches_jax(setup, batch, focal, monkeypatch)
     injected = []
     for level in _levels(outputs):
         port_cost = tdetr.matching_cost(level, tb["labels"], tb["boxes_2d"], tb["valid"], focal)
-        cost, rows = _recorded(solver, port_cost.numpy())
-        assert rel_err(port_cost.numpy(), cost) < OUT_TOL
+        cost, rows = _recorded(solver, port_cost.numpy(), batch["valid"])
+        assert rel_err(_valid_columns(port_cost.numpy(), batch["valid"]),
+                       _valid_columns(cost, batch["valid"])) < OUT_TOL
         # the port's JV (CPU twin) on the JAX cost: the JAX assignment exactly
         assert np.array_equal(tmatching.linear_sum_assignment(torch.from_numpy(cost)).numpy(),
                               rows)
@@ -254,7 +267,7 @@ def test_parameter_gradients_match_jax_grad(setup, batch, monkeypatch):
     model.zero_grad()
     out = model(tb["images"], tb["intrinsics"], aux_outputs=True)
     injected = [torch.from_numpy(_recorded(solver, tdetr.matching_cost(
-        level, tb["labels"], tb["boxes_2d"], tb["valid"]).numpy())[1]).long()
+        level, tb["labels"], tb["boxes_2d"], tb["valid"]).numpy(), batch["valid"])[1]).long()
         for level in _levels(out)]
     total, _ = tdetr.detr_loss(out, tb["labels"], tb["boxes_2d"], tb["boxes_3d"], tb["valid"],
                                row_to_col=injected)

@@ -126,7 +126,7 @@ def test_the_detector_entry_points_run_on_the_card_unless_asked_for_the_cpu():
             detr3d.make_detector(**small)
         with pytest.raises((AssertionError, RuntimeError)):
             detector_training.create_train_state(detr3d.make_detector(device="cpu", **small))
-    model = detr3d.make_detector(True, device="cpu", **small)
+    model = detr3d.make_detector("deformable", device="cpu", **small)
     model, optimizer = detector_training.create_train_state(model, device="cpu")
     assert _devices(dict(model.state_dict())) == {"cpu"}
 

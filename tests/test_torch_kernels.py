@@ -29,8 +29,9 @@ with a card and no JAX):
   isolation at F=3; the same for K3/K4b, with N = 2 and with N = 64 for
   its 128-thread CTAs with the residual field. K1/K2 and K4a/K4c also at
   the driver's instance buckets N = 16, 24 and 32; the JV matching kernel
-  (``csrc/matching.cu``) against its twin at n = 9 to 64 and at the DETR
-  loss's 8 x {1, 3} levels of [50, 50] costs; and the detector
+  (``csrc/matching.cu``) against its twin at n = 9 to 128, at the DETR
+  loss's 8 x {1, 3} levels of [50, 50] costs and at the published DETR's
+  6 x 8 levels of [100, 100]; and the detector
   (``models/detr3d.py``) on the card against float64 on the CPU.
 
 Tolerances, with their reasons:
@@ -1663,12 +1664,14 @@ def test_dir_forward_keeps_frames_apart_on_card(cuda, use_rdf):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [9, 16, 24, 32, 50, 64])
+@pytest.mark.parametrize("n", [9, 16, 24, 32, 50, 64, 65, 100, 128])
 def test_jv_kernel_matches_its_twin_on_card(cuda, n):
     """The JV kernel (csrc/matching.cu) against its plain twin on 8 frames
     of padded costs (valid counts below n, one frame of tied costs): the
     same row_to_col entry for entry, from ONE launch for the batch; one
-    frame alone equals its row of the batch."""
+    frame alone equals its row of the batch. n <= 64 runs the 3-slot
+    instantiation, 65-128 the 5-slot one with 64 KB of dynamic shared
+    memory."""
     rng = np.random.default_rng(n)
     cost = rng.normal(size=(8, n, n)).astype(np.float32)
     cost[1] = np.round(cost[1] * 2.0) / 2.0
@@ -1703,8 +1706,8 @@ def _detr_batch(b, n, hw, seed):
 @pytest.mark.parametrize("levels", [1, 3])
 def test_jv_kernel_takes_the_detr_costs_on_card(cuda, levels):
     """The DETR loss's matching shape: 8 images x ``levels`` decoder levels of
-    [50, 50] costs (up to 16 targets in the first columns, PAD_COST in the
-    rest) in ONE launch, equal to the twin entry for entry."""
+    [50, 50] costs (up to 16 targets in the first columns, 0 in the rest)
+    in ONE launch, equal to the twin entry for entry."""
     from vsrd_tpu_torch.models import detr3d
 
     torch.manual_seed(levels)
@@ -1713,6 +1716,31 @@ def test_jv_kernel_takes_the_detr_costs_on_card(cuda, levels):
         {"logits": torch.randn(8, 50, 2), "boxes_2d": torch.rand(8, 50, 4)},
         batch["labels"], batch["boxes_2d"], batch["valid"]) for _ in range(levels)])
     assert costs.shape == (8 * levels, 50, 50)
+    before = tmatch.jv_assignment.launches
+    got = tmatch.linear_sum_assignment(costs.to(cuda))
+    assert tmatch.jv_assignment.launches == before + 1
+    assert torch.equal(got.cpu(), tmatch.linear_sum_assignment_twin(costs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad_cost", [0.0, tmatch.PAD_COST])
+def test_jv_kernel_takes_the_published_detr_costs_on_card(cuda, pad_cost):
+    """The published DETR loss's matching shape: 6 decoder levels x 8 images
+    of [100, 100] costs (GIoU, up to 32 targets in the first columns, the
+    rest padded with ``pad_cost``: the loss's 0, and the large pad of the
+    labeling loss's matching) in ONE launch, equal to the twin entry for
+    entry."""
+    from vsrd_tpu_torch.models import detr3d
+
+    torch.manual_seed(int(pad_cost))
+    batch = _detr_batch(8, 32, (64, 96), 5)
+    costs = torch.cat([detr3d.matching_cost(
+        {"logits": torch.randn(8, 100, 2), "boxes_2d": torch.rand(8, 100, 4)},
+        batch["labels"], batch["boxes_2d"], batch["valid"], giou=True) for _ in range(6)])
+    assert costs.shape == (48, 100, 100)
+    valid = torch.zeros(48, 100, dtype=torch.bool)
+    valid[:, :32] = batch["valid"].repeat(6, 1)
+    costs = torch.where(valid[:, None, :], costs, pad_cost)
     before = tmatch.jv_assignment.launches
     got = tmatch.linear_sum_assignment(costs.to(cuda))
     assert tmatch.jv_assignment.launches == before + 1
@@ -1738,7 +1766,8 @@ def test_detector_forward_and_gradients_on_card_match_the_cpu(cuda, deformable):
     batch = _detr_batch(4, 12, (96, 352), 0)
     results, rows = {}, None
     for device, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
-        model = detr3d.make_detector(deformable, seed=0, device="cpu", **kwargs).to(device, dtype)
+        model = detr3d.make_detector("deformable" if deformable else "detr3d", seed=0,
+                                     device="cpu", **kwargs).to(device, dtype)
         on = {k: v.to(device, dtype) if v.is_floating_point() else v.to(device)
               for k, v in batch.items()}
         out = model(on["images"], on["intrinsics"], aux_outputs=True)

@@ -1,5 +1,5 @@
 // JV: minimum-cost perfect matching of F square cost matrices [F, n, n],
-// 8 < n <= 64, by Jonker-Volgenant shortest augmenting paths with dual
+// 8 < n <= 128, by Jonker-Volgenant shortest augmenting paths with dual
 // potentials, one launch for all frames and no host synchronisation.
 //
 // Replaces vsrd_tpu/ops/matching.py::linear_sum_assignment, which the JAX
@@ -14,15 +14,18 @@
 //   * ties of the argmin go to the lowest column, as jnp.argmin's do.
 //
 // The design: one CTA of one warp per frame (grid F). The n x n cost goes to
-// shared memory once, coalesced (64 x 64 f32 = 16 KB); the row potentials u,
-// the composed potentials up[j] = u[p[j]], p (row of each column) and way
-// (the Dijkstra tree) live in shared memory; each lane owns the columns
-// j = lane, lane + 32, lane + 64 and keeps their minv, v and used in
-// registers. One Dijkstra expansion is one column update by every lane, then
-// a warp argmin of (value, column) pairs by shuffles; the rows, their
-// Dijkstra runs and the augmenting paths all run inside the kernel. It is
-// bound by latency: n sequential Dijkstra runs of up to n + 1 dependent
-// expansions each, a few hundred cycles apiece.
+// dynamic shared memory once, coalesced (n^2 f32: 16 KB at n = 64, 40 KB at
+// DETR's 100 queries, 64 KB at 128, above the 48 KB of static shared memory,
+// so the kernel opts in to more once per device); the row potentials u, the
+// composed potentials up[j] = u[p[j]], p (row of each column) and way (the
+// Dijkstra tree) live in static shared memory; each lane owns the columns
+// j = lane + 32 k, k < kSlots, and keeps their minv, v and used in registers
+// (kSlots = 3 up to n = 64, 5 up to n = 128: the column count n + 1 over the
+// warp). One Dijkstra expansion is one column update by every lane, then a
+// warp argmin of (value, column) pairs by shuffles; the rows, their Dijkstra
+// runs and the augmenting paths all run inside the kernel. It is bound by
+// latency: n sequential Dijkstra runs of up to n + 1 dependent expansions
+// each, a few hundred cycles apiece.
 
 #include <cuda_runtime.h>
 
@@ -31,9 +34,13 @@
 
 namespace vsrd {
 
-constexpr int kJvMaxN = 64;
-constexpr int kJvSlots = (kJvMaxN + 1 + 31) / 32;   // columns per lane
+constexpr int kJvMaxN = 128;
+constexpr int kJvSmallN = 64;          // the 3-slot instantiation's largest n
+constexpr int kJvMaxDevices = 64;
 constexpr float kJvInf = 1e18f;
+
+// columns per lane for costs up to n x n: the n + 1 columns over the warp
+constexpr int jv_slots(int n) { return (n + 1 + 31) / 32; }
 
 // (value, column) argmin over the warp; ties go to the lower column.
 __device__ __forceinline__ void warp_argmin(float& value, int& column) {
@@ -48,13 +55,14 @@ __device__ __forceinline__ void warp_argmin(float& value, int& column) {
   }
 }
 
+template <int kJvSlots>
 __global__ void __launch_bounds__(32) jv_assignment_kernel(const float* __restrict__ cost, int n,
                                                            long long* __restrict__ row_to_col) {
-  __shared__ float c[kJvMaxN * kJvMaxN];
-  __shared__ float u[kJvMaxN + 1];
-  __shared__ float up[kJvMaxN + 1];
-  __shared__ int p[kJvMaxN + 1];
-  __shared__ int way[kJvMaxN + 1];
+  extern __shared__ float c[];          // n x n
+  __shared__ float u[32 * kJvSlots];
+  __shared__ float up[32 * kJvSlots];
+  __shared__ int p[32 * kJvSlots];
+  __shared__ int way[32 * kJvSlots];
 
   const int lane = threadIdx.x;
   const float* frame_cost = cost + (size_t)blockIdx.x * n * n;
@@ -150,12 +158,36 @@ __global__ void __launch_bounds__(32) jv_assignment_kernel(const float* __restri
   for (int j = lane + 1; j <= n; j += 32) out[p[j] - 1] = j - 1;
 }
 
+// One launch of the instantiation for costs up to kMaxN x kMaxN, its dynamic
+// shared memory opted in to kMaxN^2 floats once per device.
+template <int kMaxN>
+static int launch_jv(int F, int n, const float* cost, long long* row_to_col,
+                     cudaStream_t stream) {
+  static bool opted[kJvMaxDevices] = {};
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status != cudaSuccess) return (int)status;
+  if (device >= kJvMaxDevices) return (int)cudaErrorInvalidDevice;
+  constexpr int kSlots = jv_slots(kMaxN);
+  if (!opted[device]) {
+    status = cudaFuncSetAttribute(jv_assignment_kernel<kSlots>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)(kMaxN * kMaxN * sizeof(float)));
+    if (status != cudaSuccess) return (int)status;
+    opted[device] = true;
+  }
+  jv_assignment_kernel<kSlots><<<F, 32, (size_t)n * n * sizeof(float), stream>>>(cost, n,
+                                                                                row_to_col);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace vsrd
 
 extern "C" int vsrd_jv_assignment(int F, int n, const float* cost, long long* row_to_col,
                                   void* stream) {
   using namespace vsrd;
   if (n < 1 || n > kJvMaxN || F < 1) return (int)cudaErrorInvalidValue;
-  jv_assignment_kernel<<<F, 32, 0, static_cast<cudaStream_t>(stream)>>>(cost, n, row_to_col);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return n <= kJvSmallN ? launch_jv<kJvSmallN>(F, n, cost, row_to_col, s)
+                        : launch_jv<kJvMaxN>(F, n, cost, row_to_col, s);
 }

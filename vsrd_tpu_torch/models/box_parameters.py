@@ -75,9 +75,12 @@ def decode_orientation(orientations):
     return rotation_matrix_y_from_cos_sin(unit[..., 0], unit[..., 1])
 
 
-def decode_box_3d(locations, dimensions, orientations):
-    """(loc [..., 3], half-dims [..., 3], R [..., 3, 3]) -> corners [..., 8, 3]."""
-    unit = torch.tensor(UNIT_BOX_CORNERS, dtype=dimensions.dtype, device=dimensions.device)
+def decode_box_3d(locations, dimensions, orientations, unit=None):
+    """(loc [..., 3], half-dims [..., 3], R [..., 3, 3]) -> corners [..., 8, 3].
+    ``unit``: ``UNIT_BOX_CORNERS`` as a tensor on the device already (made
+    here otherwise: a copy from the host, which waits for the device)."""
+    if unit is None:
+        unit = torch.tensor(UNIT_BOX_CORNERS, dtype=dimensions.dtype, device=dimensions.device)
     corners = unit * dimensions[..., None, :]
     corners = corners @ orientations.transpose(-2, -1)
     return corners + locations[..., None, :]

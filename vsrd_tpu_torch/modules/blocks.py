@@ -15,6 +15,9 @@ parameters over):
 * convolutions pad 'same', as flax's SAME.
 
 Randomness is explicit: ``DropPath`` takes a ``torch.Generator``.
+
+``ResNet50`` (with ``Bottleneck`` and ``FrozenBatchNorm2d``) is the port's
+own, DETR's backbone: it has no counterpart in the JAX package.
 """
 
 from __future__ import annotations
@@ -187,3 +190,131 @@ class UnpackingBlock(nn.Module):
     def forward(self, inputs):
         x = F.elu(self.norm(self.conv2d(inputs)))
         return pixel_shuffle(_depth_conv(x, self.conv3d), self.stride)
+
+
+# the calibrated scale of each residual branch's last norm (ResNet50.calibrate_)
+RESIDUAL_BRANCH_SCALE = 0.2
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """Batch normalization with fixed statistics and affine terms, all four
+    buffers (DETR's ``FrozenBatchNorm2d``, eps 1e-5): ``x * scale + shift``
+    with ``scale = weight / sqrt(running_var + eps)`` and ``shift = bias -
+    running_mean * scale``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, inputs):
+        scale = self.weight * (self.running_var + self.eps).rsqrt()
+        shift = self.bias - self.running_mean * scale
+        return inputs * scale[None, :, None, None] + shift[None, :, None, None]
+
+
+class Bottleneck(nn.Module):
+    """torchvision's ResNet bottleneck (v1.5, the stride on the 3x3): 1x1,
+    3x3, 1x1 convolutions without biases to ``4 width`` channels, each with
+    ``FrozenBatchNorm2d``, a projected shortcut where the shape changes,
+    ReLU after the sum."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, width: int, stride: int = 1):
+        super().__init__()
+        out_channels = width * self.expansion
+        self.conv1 = nn.Conv2d(in_channels, width, 1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, bias=False)
+        self.bn2 = FrozenBatchNorm2d(width)
+        self.conv3 = nn.Conv2d(width, out_channels, 1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(out_channels)
+        self.downsample = None
+        if stride != 1 or in_channels != out_channels:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_channels, out_channels, 1, stride=stride, bias=False),
+                FrozenBatchNorm2d(out_channels))
+
+    def forward(self, inputs):
+        x = F.relu(self.bn1(self.conv1(inputs)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = self.bn3(self.conv3(x))
+        shortcut = inputs if self.downsample is None else self.downsample(inputs)
+        return F.relu(x + shortcut)
+
+
+class ResNet50(nn.Module):
+    """torchvision's ResNet-50 trunk as DETR uses it, NCHW in, C5 out
+    (2048 channels, stride 32): a 7x7 stride-2 stem with a 3x3 stride-2 max
+    pool, then 3-4-6-3 bottlenecks of widths 64, 128, 256, 512 (strides 1,
+    2, 2, 2), every norm a ``FrozenBatchNorm2d``. As DETR trains it, the
+    stem and ``layer1`` take no gradient (``TRAINED`` lists the rest)."""
+
+    LAYERS = ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2))
+    TRAINED = ("layer2", "layer3", "layer4")
+    channels = 2048
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm2d(64)
+        in_channels = 64
+        for index, (blocks, width, stride) in enumerate(self.LAYERS, start=1):
+            layer = []
+            for block in range(blocks):
+                layer.append(Bottleneck(in_channels, width, stride if block == 0 else 1))
+                in_channels = width * Bottleneck.expansion
+            self.add_module(f"layer{index}", nn.Sequential(*layer))
+        for name, param in self.named_parameters():
+            param.requires_grad_(name.startswith(self.TRAINED))
+
+    def forward(self, inputs):
+        x = F.max_pool2d(F.relu(self.bn1(self.conv1(inputs))), 3, stride=2, padding=1)
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator):
+        """torchvision's initialization: every convolution He-normal over its
+        fan-out (``kaiming_normal_``, ReLU gain), every norm the identity."""
+        for module in self.modules():
+            if isinstance(module, nn.Conv2d):
+                nn.init.kaiming_normal_(module.weight, mode="fan_out", nonlinearity="relu",
+                                        generator=generator)
+
+    @torch.no_grad()
+    def calibrate_(self, inputs, branch_scale: float = RESIDUAL_BRANCH_SCALE):
+        """Set every norm's statistics from ``inputs`` (a calibration batch,
+        NCHW), in the order the forward reaches them: each norm's running
+        mean and variance become its own input's per-channel mean and
+        (biased) variance, so that every norm's output has zero mean and
+        unit variance on the batch, and the last norm of each residual
+        branch (``bn3``) scales its output by ``branch_scale``. Returns the
+        C5 map of ``inputs``.
+
+        Why the branch scale: with every norm the identity on its input, a
+        random ResNet-50 is chaotic (each block adds a branch as large as
+        its shortcut): it amplifies a relative perturbation of its input
+        several hundredfold, so one float32 rounding moves C5 by 1e-4 and
+        bfloat16 products by 60 %, where an ImageNet-trained trunk, whose
+        last norms of the branches carry small scales, does not. At 0.2
+        bfloat16 products move C5 by 0.4 % and float32's by 3e-7."""
+        last = {id(block.bn3) for block in self.modules() if isinstance(block, Bottleneck)}
+
+        def set_statistics(norm, args):
+            x = args[0]
+            norm.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+            norm.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+            if id(norm) in last:
+                norm.weight.fill_(branch_scale)
+
+        hooks = [m.register_forward_pre_hook(set_statistics) for m in self.modules()
+                 if isinstance(m, FrozenBatchNorm2d)]
+        try:
+            return self(inputs)
+        finally:
+            for hook in hooks:
+                hook.remove()

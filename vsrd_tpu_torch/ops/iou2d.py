@@ -1,6 +1,7 @@
-"""2D box IoU, DIoU, DIoU loss and smooth L1 (boxes are ``(x0, y0, x1, y1)``).
+"""2D box IoU, GIoU, DIoU, DIoU loss and smooth L1 (boxes are ``(x0, y0, x1, y1)``).
 
-Counterpart of ``vsrd_tpu/ops/iou2d.py``.
+Counterpart of ``vsrd_tpu/ops/iou2d.py``; the generalized IoU (DETR's box
+cost and loss, Rezatofighi et al. 2019) is the port's own.
 """
 
 from __future__ import annotations
@@ -38,6 +39,31 @@ def elementwise_box_iou(boxes1, boxes2, epsilon: float = 1e-7):
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
     return inter / (area1 + area2 - inter + epsilon)
+
+
+def generalized_box_iou(boxes1, boxes2):
+    """Pairwise GIoU ``[..., N, 4] x [..., M, 4] -> [..., N, M]``: IoU less
+    the share of the enclosing box that the union leaves empty."""
+    inter, union = _pairwise_inter_union(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    enclosing = wh[..., 0] * wh[..., 1]
+    return inter / union - (enclosing - union) / enclosing
+
+
+def elementwise_generalized_box_iou(boxes1, boxes2):
+    """Elementwise GIoU over matching leading shapes ``[..., 4]``."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(boxes1) + box_area(boxes2) - inter
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    enclosing = wh[..., 0] * wh[..., 1]
+    return inter / union - (enclosing - union) / enclosing
 
 
 def distance_box_iou(boxes1, boxes2, epsilon: float = 1e-7):

@@ -22,8 +22,9 @@ _INF = 1e18
 # O(1) (negated DIoU), so mixed valid/pad matches are strictly worse than
 # valid/valid + pad/pad.
 PAD_COST = 1e6
-# the JV kernel's largest n (its cost lives in 16 KB of shared memory)
-JV_MAX_N = 64
+# the JV kernel's largest n (its cost lives in n^2 floats of dynamic shared
+# memory: 64 KB at 128)
+JV_MAX_N = 128
 
 
 def linear_sum_assignment_dp(cost: torch.Tensor) -> torch.Tensor:
@@ -123,8 +124,8 @@ def linear_sum_assignment_twin(cost: torch.Tensor) -> torch.Tensor:
 
 def jv_assignment(cost: torch.Tensor) -> torch.Tensor:
     """Launch the JV kernel on ``[..., n, n]`` costs on a card (1 <= n <=
-    64): one CTA per leading index, ``row_to_col [..., n]`` int64. Counts
-    its launches in ``jv_assignment.launches``."""
+    ``JV_MAX_N``): one CTA per leading index, ``row_to_col [..., n]`` int64.
+    Counts its launches in ``jv_assignment.launches``."""
     from ..rendering.field_kernels import build_library
 
     if cost.ndim < 2 or cost.shape[-2] != cost.shape[-1] or not 1 <= cost.shape[-1] <= JV_MAX_N:

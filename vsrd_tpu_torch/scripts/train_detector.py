@@ -3,10 +3,16 @@
 Counterpart of ``scripts/train_detector.py``, with its flags and defaults
 and ``--device`` (default ``cuda``): prediction JSONs
 (``tools/kitti_360/make_predictions``) and their images -> the port's
-DETR3D (``--deformable``: DeformableDETR3D), AdamW, an AP / KITTI AP|R40
-evaluation on a held-out split at ``eval_intervals`` and at the end, and
-checkpoints in the JAX package's layout (``models={"detector": <flax
-tree>}``, ``step``, ``config``). Images are decoded and resized without
+DETR3D (``--arch deformable``, or ``--deformable`` as before:
+DeformableDETR3D), AdamW, an AP / KITTI AP|R40 evaluation on a held-out
+split at ``eval_intervals`` and at the end, and checkpoints in the JAX package's layout (``models={"detector": <flax
+tree>}``, ``step``, ``config``). ``--arch detr-r50`` trains DETR at its
+published widths (``PublishedDETR3D``: ResNet-50, 6 + 6 layers of 256, 100
+queries) by its recipe (AdamW at ``--learning_rate`` and 1e-5 for the
+trained backbone, gradients clipped to norm 0.1, the loss on all six
+decoder levels); the width flags default to the architecture's, and its
+checkpoints hold the port's ``state_dict`` under ``models.detector`` (the
+JAX package has no such model). Images are decoded and resized without
 PIL (``data/png.py``, ``transforms.resize_pil_bilinear``, PIL's BILINEAR
 byte for byte) and memoized.
 
@@ -18,7 +24,7 @@ writes the checkpoints.
 Usage:
     python -m vsrd_tpu_torch.scripts.train_detector --root_dirname datasets/KITTI-360 \\
         --ckpt_dirname ckpts/kitti_360/vsrd --out_dirname ckpts/detr3d \\
-        --num_steps 10000 --batch_size 8 [--deformable]
+        --num_steps 10000 --batch_size 8 [--arch deformable | --arch detr-r50]
 """
 
 from __future__ import annotations
@@ -40,6 +46,16 @@ from ..pipeline import detector_eval
 from ..pipeline import detector_training as dt
 from ..utils import convert
 from ..utils.saver import Saver
+
+# the width flags' defaults by architecture: the JAX CLI's, and DETR's published ones
+JAX_WIDTHS = {"num_queries": 50, "hidden_dim": 128, "num_encoder_layers": 2,
+              "num_decoder_layers": 2, "num_heads": 8}
+WIDTHS = {
+    "detr3d": JAX_WIDTHS,
+    "deformable": JAX_WIDTHS,
+    "detr-r50": {"num_queries": 100, "hidden_dim": 256, "num_encoder_layers": 6,
+                 "num_decoder_layers": 6, "num_heads": 8},
+}
 
 
 def build_index(root_dirname, ckpt_name):
@@ -168,12 +184,15 @@ def parse_args(argv=None):
     parser.add_argument("--max_boxes", type=int, default=16)
     parser.add_argument("--confidence_threshold", type=float, default=0.3)
     parser.add_argument("--learning_rate", type=float, default=1e-4)
-    parser.add_argument("--num_queries", type=int, default=50)
-    parser.add_argument("--hidden_dim", type=int, default=128)
-    parser.add_argument("--num_encoder_layers", type=int, default=2)
-    parser.add_argument("--num_decoder_layers", type=int, default=2)
-    parser.add_argument("--num_heads", type=int, default=8)
-    parser.add_argument("--deformable", action="store_true")
+    parser.add_argument("--arch", choices=tuple(WIDTHS), default="detr3d",
+                        help="detr3d: the JAX package's DETR3D; deformable: its deformable "
+                             "variant; detr-r50: DETR at its published widths and recipe")
+    for name in WIDTHS["detr3d"]:
+        parser.add_argument(f"--{name}", type=int, default=None,
+                            help="default: the architecture's (detr3d "
+                                 f"{WIDTHS['detr3d'][name]}, detr-r50 {WIDTHS['detr-r50'][name]})")
+    parser.add_argument("--deformable", dest="arch", action="store_const", const="deformable",
+                        help="--arch deformable")
     parser.add_argument("--log_intervals", type=int, default=50)
     parser.add_argument("--ckpt_intervals", type=int, default=1000)
     parser.add_argument("--eval_intervals", type=int, default=1000,
@@ -185,7 +204,11 @@ def parse_args(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (the card of the process's local rank) or 'cpu'")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    for name, value in WIDTHS[args.arch].items():
+        if getattr(args, name) is None:
+            setattr(args, name, value)
+    return args
 
 
 def main(argv=None):
@@ -223,11 +246,12 @@ def main(argv=None):
             f"({'holdout' if n_hold else 'train set'})", flush=True)
     log(f"data parallel over {world} process(es) on {device}", flush=True)
 
+    published = args.arch == "detr-r50"
     model = detr3d.make_detector(
-        args.deformable, seed=args.seed, device=device, num_classes=len(args.class_names),
-        num_queries=args.num_queries, hidden_dim=args.hidden_dim,
-        num_encoder_layers=args.num_encoder_layers, num_decoder_layers=args.num_decoder_layers,
-        num_heads=args.num_heads)
+        args.arch, seed=args.seed, device=device,
+        num_classes=len(args.class_names), num_queries=args.num_queries,
+        hidden_dim=args.hidden_dim, num_encoder_layers=args.num_encoder_layers,
+        num_decoder_layers=args.num_decoder_layers, num_heads=args.num_heads)
     model_name = type(model).__name__
     model, optimizer = dt.create_train_state(model, args.learning_rate, device)
     step_fn = dt.make_train_step(model, optimizer, num_classes=len(args.class_names))
@@ -261,11 +285,12 @@ def main(argv=None):
         if rank == 0 and args.eval_intervals and ((step + 1) % args.eval_intervals == 0 or last):
             run_eval(step)
         if rank == 0 and ((step + 1) % args.ckpt_intervals == 0 or last):
+            state = dt.unwrap(model).state_dict()
             saver.save(
                 f"step_{step}",
                 step=np.asarray(step),
-                models={"detector": convert.detector_params_to_jax(
-                    dt.unwrap(model).state_dict(), args.num_heads)},
+                models={"detector": state if published
+                        else convert.detector_params_to_jax(state, args.num_heads)},
                 config=config,
             )
     parallel.barrier()

@@ -12,6 +12,11 @@ falls inside exactly one of the stages below; ``optimize_chunk``'s stack
 and copy of the scalars to the host run under ``vsrd.report`` too. The
 field kernels' wrappers name their calls ``field_kernels.fused_field_with_grad``, ``fused_field_dir_forward``
 and ``field_backward``.
+
+The detector's training step (``pipeline/detector_training.py``) runs under
+``det.step`` and every operation it launches falls inside exactly one of
+``DETECTOR_STAGES``: the model's forward names its two, ``detr_loss`` its
+matching and its loss, the step the rest.
 """
 
 from __future__ import annotations
@@ -36,6 +41,25 @@ STAGE_MEANINGS = {
                    "the host",
 }
 STAGES = tuple(STAGE_MEANINGS)
+
+DETECTOR_STEP = "det.step"
+DETECTOR_BACKBONE = "det.backbone"
+DETECTOR_TRANSFORMER = "det.transformer"
+DETECTOR_MATCH = "det.match"
+DETECTOR_LOSS = "det.loss"
+DETECTOR_BACKWARD = "det.backward"
+DETECTOR_OPTIM = "det.optim"
+DETECTOR_STAGE_MEANINGS = {
+    DETECTOR_BACKBONE: "the images' normalization, the backbone, the input projection and "
+                       "the positions",
+    DETECTOR_TRANSFORMER: "the encoder, the decoder and the heads on every decoder level",
+    DETECTOR_MATCH: "every level's matching cost and their one JV solve",
+    DETECTOR_LOSS: "the matched losses of every level and their total; the step's report "
+                   "of them",
+    DETECTOR_BACKWARD: "the gradients' reset and the backward pass",
+    DETECTOR_OPTIM: "the gradients' clipping and the AdamW update",
+}
+DETECTOR_STAGES = tuple(DETECTOR_STAGE_MEANINGS)
 
 OFF = contextlib.nullcontext()
 _profiling = torch._C._autograd._profiler_enabled

@@ -41,7 +41,12 @@ Phases (any failure exits non-zero):
    default precision; the losses and the 3D IoU must be finite, all 8
    instances matched at the metric step, and K1, K2 and K3 launched
    exactly once per step, K1 and K2 with bf16 products in every residual
-   step; then the median ms/step of each phase; then the same 40 steps at
+   step (the steps replayed from CUDA graphs count their launches too: a
+   ``graph_step_share`` line per slice says how many, and the last two
+   replayed steps, replayed and run eagerly from the same state under
+   ``torch.profiler``, must show each of the port's kernels as often in
+   the trace); then the median
+   ms/step of each phase; then the same 40 steps at
    ``kernel_matmul_precision="highest"`` (the strict mode: K1 twice a step,
    its coarse pass with the full field, K2 once, K3 never, no bf16
    products) and its ms/step;
@@ -848,13 +853,14 @@ def run_path(label: str, frame, cfg, batched: bool):
     with the residual field."""
     import numpy as np
 
-    from vsrd_tpu_torch.pipeline import optimize as opt
+    from vsrd_tpu_torch.pipeline import optimize as opt, step_graph
     from vsrd_tpu_torch.rendering import field_kernels as fk
 
     kernels = (("K4a", "K4c", "K4b") if batched else ("K1", "K2", "K3"))
     launchers = (fk.field_forward, fk.field_backward, fk.field_dir_forward)
     valid_counts = frame.valid.sum(-1).reshape(-1).tolist()
     fk.reset_launch_counts()
+    step_graph.graphs.reset_counts()
     start = time.perf_counter()
     run = opt.optimize_frames_batched if batched else opt.optimize_frame
     params, scalars = run(frame, 1, cfg)
@@ -872,6 +878,10 @@ def run_path(label: str, frame, cfg, batched: bool):
     steps, last, warm = cfg.num_steps, cfg.num_steps - 1, cfg.warmup_steps
     print(f"[{label}] {steps} steps: {elapsed:.2f} s; launches {counts}, with the residual "
           f"field {rdf}", flush=True)
+    graphs = step_graph.graphs
+    print(f"[{label}] graph_step_share {100.0 * graphs.replays / steps:.1f} % ({graphs.replays} "
+          f"of {steps} steps replayed from {graphs.captures} captured graphs, "
+          f"{graphs.eager_steps} eager)", flush=True)
     loss = np.atleast_2d(scalars["loss"].T)
     iou = np.atleast_2d(scalars["iou_3d"].T)
     for f in range(loss.shape[0]):
@@ -922,7 +932,91 @@ def run_path(label: str, frame, cfg, batched: bool):
         if bf16[name] != (0 if strict else expected_rdf[name]):
             fail(f"{label}: {name} launched {bf16[name]} times with bf16 products (expected "
                  f"{0 if strict else expected_rdf[name]} at {cfg.kernel_matmul_precision})")
+    if graphs.replays:
+        # the photometric branch's residual steps stay eager: its warmup replays
+        replayed_kernels_check(label, frame, params, cfg, warm if photometric else steps)
     return params, counts, rdf
+
+
+def own_kernel_names() -> frozenset:
+    """The kernels that the port's CUDA sources declare ``__global__``."""
+    import re
+
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)")
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vsrd_tpu_torch", "csrc")
+    names = set()
+    for name in sorted(os.listdir(csrc)):
+        if ".cu" in name:
+            with open(os.path.join(csrc, name)) as f:
+                names.update(pattern.findall(f.read()))
+    return frozenset(names)
+
+
+def profiled_kernels(run) -> dict:
+    """The device kernels that ``run()`` launches, counted by name from a
+    ``torch.profiler`` trace (``void ns::name<args>(params)`` -> ``name``)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = collections.Counter()
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            name = event.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            counts[name.split("<")[0].split("(")[0].split("::")[-1].strip()] += 1
+    return counts
+
+
+def replayed_kernels_check(label: str, frame, params, cfg, end: int):
+    """Steps ``end - 2`` and ``end - 1`` of the run (the last two that
+    replay) again from fresh copies of ``params``: once
+    replayed from the graph that the run captured, once as eager
+    ``train_step`` calls, each under ``torch.profiler``; the trace's count of
+    each of the port's own kernels must be the same in both (a replay that
+    runs a kernel twice or not at all fails here, where the launch counters,
+    which a replay advances by what its graph held at capture, cannot see
+    it)."""
+    import torch
+
+    from vsrd_tpu_torch.pipeline import optimize as opt, step_graph
+
+    first, steps = end - 2, 2
+    optimizer = opt.Adam(cfg)
+
+    def fresh():
+        state_params = opt.tree_map(torch.clone, params)
+        state = optimizer.init(state_params)
+        state["count"] = first
+        return state_params, state
+
+    own = own_kernel_names()
+    replays = step_graph.graphs.replays
+    p, state = fresh()
+    replayed = profiled_kernels(
+        lambda: opt.optimize_chunk(p, state, frame, 1, first, cfg, steps, optimizer))
+    if step_graph.graphs.replays - replays != steps:
+        fail(f"{label}: {step_graph.graphs.replays - replays} of the profiled chunk's {steps} "
+             f"steps replayed (expected all)")
+    p, state = fresh()
+    eager = profiled_kernels(lambda: [
+        opt.train_step(p, state, frame, step, cfg, optimizer,
+                       opt.step_generator(1, step, frame.device))
+        for step in range(first, first + steps)])
+    per_step = {kind: {name: n / steps for name, n in sorted(counts.items()) if name in own}
+                for kind, counts in (("replayed", replayed), ("eager", eager))}
+    print(f"[{label}] own kernels a step in the profiler's trace, replayed "
+          f"{per_step['replayed']}, eager {per_step['eager']}; all device operations a step "
+          f"{sum(replayed.values()) / steps:.1f} replayed, {sum(eager.values()) / steps:.1f} "
+          f"eager", flush=True)
+    if not per_step["eager"] or per_step["replayed"] != per_step["eager"]:
+        fail(f"{label}: the port's kernels in the trace of {steps} replayed steps "
+             f"{per_step['replayed']} differ from those of the same steps run eagerly "
+             f"{per_step['eager']}")
 
 
 def step_times(frame, params, cfg) -> dict:
@@ -2146,17 +2240,24 @@ def skip_slice_phase(card: str, cfg) -> dict:
     from vsrd_tpu_torch.pipeline import sharded
     from vsrd_tpu_torch.rendering import field_kernels as fk
 
-    record = []
+    # device sums, so that the steps replayed from a CUDA graph add theirs too
+    kept_pairs = torch.zeros((), dtype=torch.float64, device="cuda")
+    all_pairs = torch.zeros((), dtype=torch.float64, device="cuda")
     mask_for = fk.group_mask_for
 
     def recording(*args):
         mask = mask_for(*args)
-        record.append((mask.sum(), mask.numel()))
+        kept_pairs.add_(mask.sum())
+        all_pairs.add_(mask.numel())
         return mask
 
+    def clear():
+        kept_pairs.zero_()
+        all_pairs.zero_()
+
     def kept_share() -> float:
-        share = float(sum(s for s, _ in record)) / sum(c for _, c in record)
-        record.clear()
+        share = float(kept_pairs / all_pairs)
+        clear()
         return share
 
     result = {}
@@ -2182,7 +2283,7 @@ def skip_slice_phase(card: str, cfg) -> dict:
             times["off"].append(step_times(frame, params, off_cfg))
             for tile in SKIP_TILES:
                 fk.MASK_TILE = tile
-                record.clear()
+                clear()
                 times[tile].append(step_times(frame, params, on_cfg))
                 kept[tile].append(kept_share())
             fk.MASK_TILE = SKIP_TILES[0]
@@ -2202,7 +2303,7 @@ def skip_slice_phase(card: str, cfg) -> dict:
             list(range(FRAMES)), "cuda", num_instances=SKIP_BATCH_N, max_instances=SKIP_BATCH_N,
             layout="kitti"))
         label = f"batched skip slice F={FRAMES} N={SKIP_BATCH_N}, skip on"
-        record.clear()
+        clear()
         params, counts, rdf = run_path(label, batch, on_cfg, batched=True)
         result["batched on"] = (counts, rdf)
         result["batched kept"] = kept_share()
@@ -2210,7 +2311,7 @@ def skip_slice_phase(card: str, cfg) -> dict:
         for _ in range(2):
             times["off"].append(step_times(batch, params, off_cfg))
             times["on"].append(step_times(batch, params, on_cfg))
-        record.clear()
+        clear()
         result["batched ms"] = {k: {ph: statistics.median(t[ph] for t in v)
                                     for ph in ("warmup", "rdf")} for k, v in times.items()}
         for key, ms in result["batched ms"].items():

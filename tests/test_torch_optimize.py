@@ -91,6 +91,13 @@ def test_compute_loss_and_gradients_match(setup, shared_noise, use_rdf):
     _compare_loss_and_gradients(setup, TCFG, use_rdf)
 
 
+@pytest.mark.parametrize("use_rdf", [False, True])
+def test_compute_loss_with_the_step_on_the_device_matches(setup, shared_noise, use_rdf):
+    """The step index as the float32 tensor that a step's row of
+    ``chunk_scalars`` holds (the form a CUDA graph of the step reads)."""
+    _compare_loss_and_gradients(setup, TCFG, use_rdf, step_tensor=True)
+
+
 def test_full_field_coarse_pass_matches(setup, shared_noise):
     """``kernel_dir_coarse=False`` in the fast mode: the coarse pass
     evaluates the full field with its spatial gradient, which is what the
@@ -116,7 +123,7 @@ def test_full_field_coarse_pass_matches(setup, shared_noise):
         _compare_loss_and_gradients(setup, cfg, use_rdf=True, jcfg=jcfg)
 
 
-def _compare_loss_and_gradients(setup, tcfg, use_rdf, jcfg=JCFG):
+def _compare_loss_and_gradients(setup, tcfg, use_rdf, jcfg=JCFG, step_tensor=False):
     jf, tf, params, ray_idx = setup
     step = 5
 
@@ -128,7 +135,8 @@ def _compare_loss_and_gradients(setup, tcfg, use_rdf, jcfg=JCFG):
 
     tp = convert.params_from_jax(params, device="cpu")
     leaves = [t.requires_grad_() for _, t in topt.tree_leaves(tp)]
-    total2, aux2 = topt.compute_loss(tp, tf, step, tcfg, use_rdf,
+    tstep = torch.tensor(float(step)) if step_tensor else step
+    total2, aux2 = topt.compute_loss(tp, tf, tstep, tcfg, use_rdf,
                                      ray_indices=torch.as_tensor(ray_idx))
     grads2 = torch.autograd.grad(total2, leaves, allow_unused=True)
 
@@ -151,6 +159,17 @@ def test_three_steps_across_the_warmup_boundary_match(setup, shared_noise):
     """Steps 0-1 box-only, step 2 the first with the residual field: the
     embeddings' and hypernetwork's first Adam update uses the
     bias-correction offset of warmup_steps."""
+    _three_steps_match(setup, table=False)
+
+
+def test_three_steps_from_one_chunk_table_match(setup, shared_noise):
+    """The same three steps with their numbers (the step index, Adam's
+    decayed step sizes and bias corrections per group) from one table of
+    ``chunk_scalars``, as ``optimize_chunk`` feeds them."""
+    _three_steps_match(setup, table=True)
+
+
+def _three_steps_match(setup, table: bool):
     jf, tf, params, ray_idx = setup
     tx = jopt.make_optimizer(JCFG, params)
     jstate = tx.init(params)
@@ -159,12 +178,14 @@ def test_three_steps_across_the_warmup_boundary_match(setup, shared_noise):
     tp = convert.params_from_jax(params, device="cpu")
     tstate = convert.adam_state_from_jax(jax.device_get(jstate), device="cpu")
     optimizer = topt.Adam(TCFG)
+    rows = topt.chunk_scalars(TCFG, optimizer, 0, tstate["count"], 3, "cpu") if table else None
     for step in range(3):
         jparams, jstate, jscalars = jstep(jparams, jstate, jf, jnp.asarray(step),
                                           jax.random.PRNGKey(step), JCFG, tx,
                                           ray_indices=jnp.asarray(ray_idx, jnp.int32))
         tscalars = topt.train_step(tp, tstate, tf, step, TCFG, optimizer,
-                                   ray_indices=torch.as_tensor(ray_idx))
+                                   ray_indices=torch.as_tensor(ray_idx),
+                                   scalars=None if rows is None else rows[step])
         for name in ("loss", "silhouette_loss", "eikonal_loss", "iou_3d", "num_matched"):
             np.testing.assert_allclose(float(tscalars[name]), float(jscalars[name]),
                                        rtol=1e-5, atol=1e-8, err_msg=f"{name} @ {step}")

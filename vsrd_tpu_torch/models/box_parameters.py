@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.geometry import rotation_matrix_y_from_cos_sin
+from ..ops.geometry import device_constant, rotation_matrix_y_from_cos_sin
 
 # KITTI-360 "evaluation" corner order.
 UNIT_BOX_CORNERS = (
@@ -54,7 +54,7 @@ def init_box_parameters(
 
 
 def _range(bounds, like: torch.Tensor):
-    lo, hi = (torch.tensor(r, dtype=like.dtype, device=like.device) for r in bounds)
+    lo, hi = (device_constant(r, like.dtype, like.device) for r in bounds)
     return lo, hi
 
 
@@ -75,12 +75,9 @@ def decode_orientation(orientations):
     return rotation_matrix_y_from_cos_sin(unit[..., 0], unit[..., 1])
 
 
-def decode_box_3d(locations, dimensions, orientations, unit=None):
-    """(loc [..., 3], half-dims [..., 3], R [..., 3, 3]) -> corners [..., 8, 3].
-    ``unit``: ``UNIT_BOX_CORNERS`` as a tensor on the device already (made
-    here otherwise: a copy from the host, which waits for the device)."""
-    if unit is None:
-        unit = torch.tensor(UNIT_BOX_CORNERS, dtype=dimensions.dtype, device=dimensions.device)
+def decode_box_3d(locations, dimensions, orientations):
+    """(loc [..., 3], half-dims [..., 3], R [..., 3, 3]) -> corners [..., 8, 3]."""
+    unit = device_constant(UNIT_BOX_CORNERS, dimensions.dtype, dimensions.device)
     corners = unit * dimensions[..., None, :]
     corners = corners @ orientations.transpose(-2, -1)
     return corners + locations[..., None, :]

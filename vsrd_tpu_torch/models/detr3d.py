@@ -48,7 +48,7 @@ from ..modules.blocks import ResNet50
 from ..ops import iou2d, matching
 from ..ops.geometry import rotation_matrix_y_from_cos_sin
 from ..utils import spans
-from .box_parameters import UNIT_BOX_CORNERS, decode_box_3d
+from .box_parameters import decode_box_3d
 
 NORM_EPS = 1e-6        # flax's LayerNorm and GroupNorm
 ARCHS = ("detr3d", "deformable", "detr-r50")
@@ -183,7 +183,6 @@ class PredictionHeads(nn.Module):
         self.box_2d_regression_head = nn.Linear(hidden_dim, 4)
         self.confidence_prediction_head = nn.Linear(hidden_dim, 1)
         self.box_3d_regression_head = nn.Linear(hidden_dim, 8)
-        self.register_buffer("unit_corners", torch.tensor(UNIT_BOX_CORNERS), persistent=False)
 
     def forward(self, queries, intrinsic_matrices, image_size, reference_uv=None):
         logits = self.classification_head(queries)
@@ -211,7 +210,7 @@ class PredictionHeads(nn.Module):
         return {
             "logits": logits,
             "boxes_2d": boxes_2d,
-            "boxes_3d": decode_box_3d(locations, dims, rotations, self.unit_corners),
+            "boxes_3d": decode_box_3d(locations, dims, rotations),
             "locations": locations,
             "dimensions": dims,
             "confidences": confidences,

@@ -8,6 +8,8 @@ their inputs' device and in their dtype.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # 12 box edges in the KITTI-360 "evaluation" corner order.
@@ -16,6 +18,15 @@ LINE_INDICES = (
     (4, 5), (5, 6), (6, 7), (7, 4),
     (0, 4), (1, 5), (2, 6), (3, 7),
 )
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once per (values,
+    dtype, device): the copy from the host waits for the device, so a step
+    that CUDA graphs replay takes its constants from here. Never modify
+    the result in place."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _rotation_stack(rows) -> torch.Tensor:
@@ -175,7 +186,7 @@ def project_box_3d(
     ``intrinsic_matrix [..., 3, 3]`` broadcasts against the box batch.
     Boxes entirely behind the camera project to zeros.
     """
-    idx = torch.tensor(LINE_INDICES, device=box_3d.device)
+    idx = device_constant(LINE_INDICES, torch.int64, box_3d.device)
     lines = box_3d[..., idx, :]  # [..., 12, 2, 3]
     lines, masks = clip_lines_to_front(lines, epsilon)
 

@@ -47,7 +47,7 @@ def linear_sum_assignment_dp(cost: torch.Tensor) -> torch.Tensor:
     cost = cost.to(torch.float32)
 
     f = torch.full((*lead, num_states), float("inf"), device=device)
-    f[..., 0] = 0.0
+    f[..., 0].fill_(0.0)    # a kernel: assigning a host number copies it over
     choices = []
     for row in range(n):
         # candidate[c][S] = f[S \ {c}] + cost[row, c], valid iff c in S

@@ -15,13 +15,18 @@ The field is evaluated by the kernels of ``rendering/field_kernels.py``
 (K1/K2 for the fine pass, K3 for the box-only coarse pass); on CPU
 tensors they run their plain twins. The loop runs in Python: the step
 index, the phase and the metric cadence are host integers, and the
-per-step scalars are copied to the host once per chunk. A step still
-waits on the device a few times: each small constant made from a host
-list (in decode and projection, the annealing scalar) is a blocking copy,
-and the cumulative product's backward reads a value back. Under
-``torch.profiler`` each step is a ``vsrd.step`` span cut into the stages
-of ``utils/spans.py`` (boxes, rays, render, backward, adam, report); with
-no profiler the spans cost a flag check each.
+per-step scalars are copied to the host once per chunk. A step never
+waits on the device: its constants are made once per device
+(``geometry.device_constant``), its per-step numbers (the annealing's
+step, Adam's count-dependent scalars) come in as a device vector that
+the host fills once per chunk (``chunk_scalars``), and the cumulative
+product's backward reads nothing back. So on a card ``optimize_chunk``
+replays the step from a CUDA graph (``step_graph``), one launch for the
+step's 1,100-1,200. Eagerly (``train_step``) each step is a ``vsrd.step``
+span under ``torch.profiler``, cut into the stages of ``utils/spans.py``
+(boxes, rays, render, backward, adam, report); a replay is one
+``vsrd.step`` span around the graph's launch. With no profiler the spans
+cost a flag check each.
 
 Co-optimized frame batches (``optimize_frames_batched``): a FrameData with
 a leading frame axis (``sharded.stack_frames``) and params and Adam
@@ -43,6 +48,7 @@ that every process takes the same update as one process with all the rays.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
@@ -56,7 +62,7 @@ from ..ops import geometry, iou2d, iou3d, matching, sampling
 from ..parallel.distributed import all_reduce_sum
 from ..rendering import field_kernels, renderer, scene
 from ..utils.spans import STEP, span
-from . import photometric
+from . import photometric, step_graph
 from .frame import FrameData, ray_directions_at
 
 
@@ -227,47 +233,81 @@ class Adam:
     correction runs ``warmup_steps`` behind. Without that offset their
     first update is about 2x too small. The state is ``{"mu", "nu",
     "count"}`` like the JAX optimizer's; updates are made in place.
+
+    The count's scalars (``step_scalars``) are f32 numbers made on the
+    host, in the JAX optimizer's order of operations, and enter the update
+    as a device tensor (``scalars_from``), so that a CUDA graph of the step replays with each
+    step's own: per group the decayed step size -lr decay^count and the
+    reciprocals of the two bias corrections (the update multiplies by
+    them, as a card divides a tensor by a host number).
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
+    NUM_SCALARS = 9     # (step size, 1 / bias correction 1, 1 / bias correction 2) x 3 groups
 
     def __init__(self, cfg: OptimizationConfig):
         self.cfg = cfg
+        self._given = None
 
     def _group(self, path):
-        """(learning rate, bias-correction offset) of a parameter path."""
+        """Index of a parameter path's group: boxes, embeddings, hypernetwork."""
         if path[0] == "hyper":
-            return self.cfg.hypernetwork_lr, float(self.cfg.warmup_steps)
+            return 2
         if path[1] == "embeddings":
-            return self.cfg.embedding_lr, float(self.cfg.warmup_steps)
-        return self.cfg.box_lr, 0.0
+            return 1
+        return 0
+
+    def step_scalars(self, count: int) -> np.ndarray:
+        """The ``NUM_SCALARS`` f32 scalars of the update at ``count``."""
+        f32 = np.float32
+        c = f32(count)
+        decay = f32(self.cfg.lr_decay) ** c
+        b1, b2 = f32(self.b1), f32(self.b2)
+        warmup = f32(self.cfg.warmup_steps)
+        out = []
+        for lr, offset in ((self.cfg.box_lr, f32(0.0)), (self.cfg.embedding_lr, warmup),
+                           (self.cfg.hypernetwork_lr, warmup)):
+            t = max(c + f32(1.0) - offset, f32(1.0))
+            out += [f32(-lr) * decay, f32(1.0) / (f32(1.0) - b1 ** t),
+                    f32(1.0) / (f32(1.0) - b2 ** t)]
+        return np.asarray(out, np.float32)
 
     def init(self, params):
         zeros = lambda t: torch.zeros_like(t)  # noqa: E731
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params), "count": 0}
 
+    @contextlib.contextmanager
+    def scalars_from(self, scalars: torch.Tensor):
+        """Inside the block ``step`` takes its count's scalars from
+        ``scalars`` (``step_scalars(state["count"])`` on the parameters'
+        device) instead of making them."""
+        self._given = scalars
+        try:
+            yield
+        finally:
+            self._given = None
+
     @torch.no_grad()
     def step(self, params, grads, state):
         """Update ``params`` and ``state`` in place from ``grads`` (a list
         aligned with ``tree_leaves(params)``; ``None`` counts as zero)."""
-        # scalars in f32, in the JAX optimizer's order of operations
-        f32 = np.float32
-        c = f32(state["count"])
-        decay = f32(self.cfg.lr_decay) ** c
-        b1, b2 = f32(self.b1), f32(self.b2)
+        leaves = list(tree_leaves(params))
+        scalars = self._given
+        if scalars is None:
+            scalars = torch.from_numpy(self.step_scalars(state["count"])).to(leaves[0][1].device)
+        scalars = scalars.unbind()
         mus = [t for _, t in tree_leaves(state["mu"])]
         nus = [t for _, t in tree_leaves(state["nu"])]
-        for (path, p), g, m, v in zip(tree_leaves(params), grads, mus, nus):
-            lr, offset = self._group(path)
+        for (path, p), g, m, v in zip(leaves, grads, mus, nus):
+            step_size, inv_bias1, inv_bias2 = scalars[3 * self._group(path):][:3]
             m.mul_(self.b1)
             v.mul_(self.b2)
             if g is not None:
                 m.add_(g, alpha=1.0 - self.b1)
                 v.addcmul_(g, g, value=1.0 - self.b2)
-            t = max(c + f32(1.0) - f32(offset), f32(1.0))
-            m_hat = m / float(f32(1.0) - b1 ** t)
-            v_hat = v / float(f32(1.0) - b2 ** t)
-            p.add_(float(f32(-lr) * decay) * m_hat / (torch.sqrt(v_hat) + self.eps))
+            m_hat = m * inv_bias1
+            v_hat = v * inv_bias2
+            p.add_(step_size * m_hat / (torch.sqrt(v_hat) + self.eps))
         state["count"] += 1
 
 
@@ -343,14 +383,17 @@ def sp_ray_slice(ray_idx, generator, group):
     return ray_idx, generator
 
 
-def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
+def compute_loss(params, frame: FrameData, step: int | torch.Tensor, cfg: OptimizationConfig,
                  use_rdf: bool, generator: torch.Generator | None = None,
                  ray_indices: torch.Tensor | None = None,
                  surface_indices: torch.Tensor | None = None,
                  sp_group=None):
     """One forward pass: projection + silhouette (+ eikonal) losses.
 
-    ``use_rdf`` selects the post-warmup phase (residual field + eikonal).
+    ``step`` is the step index, or a float32 0-d tensor of it on the
+    frame's device (the annealing reads it there without a copy from the
+    host). ``use_rdf`` selects the post-warmup phase (residual field +
+    eikonal).
     ``ray_indices [(F,) R]`` overrides the per-step ray draw with flat
     (view, y, x) pixel indices, so that two implementations can render
     identical rays; ``surface_indices [(F,) R]`` likewise overrides the
@@ -408,7 +451,9 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
 
     with span("vsrd.rays"):
         # ---------------- annealing (f32, as in the JAX package) ----------------
-        progress = torch.tensor(step, dtype=torch.float32, device=device) / cfg.num_steps
+        if not isinstance(step, torch.Tensor):
+            step = torch.tensor(step, dtype=torch.float32, device=device)
+        progress = step / cfg.num_steps
         temperature = cosine_annealing(
             progress, cfg.max_sdf_union_temperature, cfg.min_sdf_union_temperature)
         std = cosine_annealing(progress, cfg.max_sdf_std_deviation, cfg.min_sdf_std_deviation)
@@ -554,6 +599,10 @@ def compute_loss(params, frame: FrameData, step: int, cfg: OptimizationConfig,
 
 METRIC_NAMES = ("iou_3d", "iou_bev", "accuracy_3d_25", "accuracy_bev_25",
                 "accuracy_3d_50", "accuracy_bev_50", "num_matched")
+# a step's scalars, in the order train_step returns them
+SCALAR_NAMES = ("loss", "iou_projection_loss", "l1_projection_loss", "silhouette_loss",
+                "eikonal_loss", "photometric_loss", *METRIC_NAMES, "temperature",
+                "sdf_std_deviation")
 
 
 def compute_metrics(frame: FrameData, cam_corners_target, row_to_col):
@@ -603,67 +652,207 @@ def sp_mean_gradients(grads, group):
     return [None if g is None else next(pieces).view_as(g) for g in grads]
 
 
+def chunk_scalars(cfg: OptimizationConfig, optimizer: Adam, start_step: int, count: int,
+                  num_steps: int, device) -> torch.Tensor:
+    """The per-step numbers of ``num_steps`` steps from ``start_step`` and
+    the Adam count ``count``, made on the host and sent to ``device`` in one
+    copy that does not wait on it: ``[steps, 1 + Adam.NUM_SCALARS]`` f32,
+    each row the step index (the annealing's input) and
+    ``optimizer.step_scalars`` at the step's count."""
+    rows = np.empty((num_steps, 1 + Adam.NUM_SCALARS), np.float32)
+    for i in range(num_steps):
+        rows[i, 0] = start_step + i
+        rows[i, 1:] = optimizer.step_scalars(count + i)
+    table = torch.from_numpy(rows)
+    if torch.device(device).type == "cuda":
+        return table.pin_memory().to(device, non_blocking=True)
+    return table.to(device)
+
+
+def _update(params, opt_state, frame: FrameData, step: torch.Tensor, adam_scalars: torch.Tensor,
+            cfg: OptimizationConfig, optimizer: Adam, use_rdf: bool, generator=None,
+            ray_indices=None, sp_group=None):
+    """The step up to its report: the loss, its gradients and Adam's update
+    of ``params`` and ``opt_state`` in place, with the step's numbers from a
+    row of ``chunk_scalars``: ``step`` (its first entry) and
+    ``adam_scalars`` (the rest). Returns ``(total, aux)``."""
+    leaves = [t for _, t in tree_leaves(params)]
+    with span("vsrd.backward"):
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+    total, aux = compute_loss(params, frame, step, cfg, use_rdf, generator, ray_indices,
+                              sp_group=sp_group)
+    with span("vsrd.backward"):
+        grads = torch.autograd.grad(total.sum(), leaves, allow_unused=True)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        if sp_group is not None:
+            grads = sp_mean_gradients(grads, sp_group)
+    with span("vsrd.adam"), optimizer.scalars_from(adam_scalars):
+        optimizer.step(params, grads, opt_state)
+    return total, aux
+
+
+def _report(total, aux, metrics, lead) -> dict:
+    """The step's scalars in ``SCALAR_NAMES`` order (the metrics 0 off a
+    metric step)."""
+    if metrics is None:
+        zero = torch.zeros(lead, device=total.device)
+        metrics = {name: zero for name in METRIC_NAMES}
+    return {
+        "loss": total.detach(),
+        **{k: v.detach() for k, v in aux["losses"].items()},
+        **metrics,
+        "temperature": aux["temperature"].expand(lead),
+        "sdf_std_deviation": aux["sdf_std_deviation"].expand(lead),
+    }
+
+
+def is_metric_step(step: int, cfg: OptimizationConfig) -> bool:
+    return (step + 1) % cfg.metric_interval == 0
+
+
 def train_step(params, opt_state, frame: FrameData, step: int, cfg: OptimizationConfig,
                optimizer: Adam, generator: torch.Generator | None = None,
-               ray_indices: torch.Tensor | None = None, sp_group=None):
-    """One optimization step with the warmup phase switch; updates
+               ray_indices: torch.Tensor | None = None, sp_group=None,
+               scalars: torch.Tensor | None = None):
+    """One eager optimization step with the warmup phase switch; updates
     ``params`` and ``opt_state`` in place and returns the step's scalars
     as device tensors (0-d, or ``[F]`` for stacked frames, whose per-frame
     losses are summed for the gradient). With ``sp_group`` the rays are
     sharded over the group (``compute_loss``) and the gradients averaged
-    over it (``sp_mean_gradients``) before the update."""
-    use_rdf = step >= cfg.warmup_steps
+    over it (``sp_mean_gradients``) before the update. ``scalars``: the
+    step's row of ``chunk_scalars`` (made here, with a copy that waits on
+    the device, when not given). Counts in ``step_graph.graphs.eager_steps``."""
+    step_graph.graphs.eager_steps += 1
+    if scalars is None:
+        scalars = chunk_scalars(cfg, optimizer, step, opt_state["count"], 1, frame.device)[0]
+    step_value, adam_scalars = scalars[0], scalars[1:]
     with span(STEP):
-        leaves = [t for _, t in tree_leaves(params)]
-        with span("vsrd.backward"):
-            for leaf in leaves:
-                leaf.requires_grad_(True)
-        total, aux = compute_loss(params, frame, step, cfg, use_rdf, generator, ray_indices,
-                                  sp_group=sp_group)
-        with span("vsrd.backward"):
-            grads = torch.autograd.grad(total.sum(), leaves, allow_unused=True)
-            for leaf in leaves:
-                leaf.requires_grad_(False)
-            if sp_group is not None:
-                grads = sp_mean_gradients(grads, sp_group)
-        with span("vsrd.adam"):
-            optimizer.step(params, grads, opt_state)
-
+        total, aux = _update(params, opt_state, frame, step_value, adam_scalars, cfg, optimizer,
+                             step >= cfg.warmup_steps, generator, ray_indices, sp_group)
         with span("vsrd.report"):
-            lead = frame.valid.shape[:-1]
-            if (step + 1) % cfg.metric_interval == 0:
+            metrics = None
+            if is_metric_step(step, cfg):
                 metrics = compute_metrics(frame, aux["cam_corners_target"].detach(),
                                           aux["row_to_col"])
-            else:
-                zero = torch.zeros(lead, device=frame.device)
-                metrics = {name: zero for name in METRIC_NAMES}
-            return {
-                "loss": total.detach(),
-                **{k: v.detach() for k, v in aux["losses"].items()},
-                **metrics,
-                "temperature": aux["temperature"].expand(lead),
-                "sdf_std_deviation": aux["sdf_std_deviation"].expand(lead),
-            }
+            return _report(total, aux, metrics, frame.valid.shape[:-1])
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The per-step random stream: a pure function of (seed, step), so that
     a run resumed at step k continues the same stream."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
+
+
+def step_seed(seed: int, step: int) -> int:
+    return seed * 1_000_003 + step
+
+
+def _state_leaves(params, opt_state) -> list:
+    """The tensors a step updates: the parameters, then both moments."""
+    return [t for tree in (params, opt_state["mu"], opt_state["nu"])
+            for _, t in tree_leaves(tree)]
+
+
+def _graph_key(params, frame: FrameData, cfg: OptimizationConfig, use_rdf: bool):
+    """What the step's code can observe beside the frame (the phase, the
+    device, the config, the parameters' shapes and dtypes, the skip mask's
+    tile), or ``None`` where the step runs eagerly: CPU tensors and the
+    photometric branch (its march reads trip counts back)."""
+    if frame.device.type != "cuda" or (cfg.photometric_weight > 0.0 and use_rdf
+                                       and frame.gray_images is not None):
+        return None
+    leaves = tuple((path, tuple(t.shape), t.dtype) for path, t in tree_leaves(params))
+    return use_rdf, frame.device, cfg, leaves, field_kernels.MASK_TILE
+
+
+def _capture(entry, params, opt_state, frame: FrameData, cfg: OptimizationConfig, optimizer,
+             use_rdf: bool, scalars: torch.Tensor):
+    """Capture the key's step on copies of ``params`` and ``opt_state``:
+    the graph's outputs are the step's scalars (``SCALAR_NAMES`` stacked,
+    the metrics 0) and the inputs of ``compute_metrics``."""
+    lead = frame.valid.shape[:-1]
+    static_params = tree_map(torch.clone, params)
+    static_state = {"mu": tree_map(torch.clone, opt_state["mu"]),
+                    "nu": tree_map(torch.clone, opt_state["nu"]), "count": opt_state["count"]}
+
+    def step(step_scalars, generator):
+        with span(STEP):
+            total, aux = _update(static_params, static_state, frame, step_scalars[0],
+                                 step_scalars[1:], cfg, optimizer, use_rdf, generator)
+            with span("vsrd.report"):
+                values = _report(total, aux, None, lead)
+                return (torch.stack([values[name] for name in SCALAR_NAMES]),
+                        aux["cam_corners_target"].detach(), aux["row_to_col"])
+
+    entry.capture(step, _state_leaves(static_params, static_state), scalars, frame.device)
 
 
 def optimize_chunk(params, opt_state, frame: FrameData, seed: int, start_step: int,
                    cfg: OptimizationConfig, num_steps: int, optimizer: Adam | None = None):
     """Run ``num_steps`` steps from ``start_step``; returns the per-step
     scalars stacked (``[steps]``, or ``[steps, F]`` for stacked frames) and
-    copied to the host once."""
+    copied to the host once.
+
+    On a card each step replays its key's CUDA graph (``step_graph``): the
+    key's first step runs eagerly on the capture stream, its second is
+    captured and replayed, and a metric step replays and then runs
+    ``compute_metrics`` on the graph's outputs. The parameters and moments
+    are copied into a graph's buffers before its first replay in a run of
+    its replays and back out after it. ``_graph_key`` says which steps stay
+    eager (all of them on the CPU)."""
     optimizer = optimizer or Adam(cfg)
-    scalars = []
-    for step in range(start_step, start_step + num_steps):
-        gen = step_generator(seed, step, frame.device)
-        scalars.append(train_step(params, opt_state, frame, step, cfg, optimizer, gen))
+    device = frame.device
+    lead = frame.valid.shape[:-1]
+    table = chunk_scalars(cfg, optimizer, start_step, opt_state["count"], num_steps,
+                          device).unbind()
+    out = torch.empty(num_steps, len(SCALAR_NAMES), *lead, device=device)
+    keys = {use_rdf: _graph_key(params, frame, cfg, use_rdf)
+            for use_rdf in {s >= cfg.warmup_steps for s in range(start_step,
+                                                                 start_step + num_steps)}}
+    leaves = _state_leaves(params, opt_state)
+    metrics = slice(SCALAR_NAMES.index(METRIC_NAMES[0]),
+                    SCALAR_NAMES.index(METRIC_NAMES[-1]) + 1)
+    bound = None     # the graph whose buffers hold the state
+    try:
+        for i, step in enumerate(range(start_step, start_step + num_steps)):
+            use_rdf = step >= cfg.warmup_steps
+            key = keys[use_rdf]
+            entry = None if key is None else step_graph.graphs.entry(key, frame)
+            if bound is not None and entry is not bound:
+                bound.store(leaves)
+                bound = None
+            if entry is not None and entry.warm and entry.graph is None:
+                _capture(entry, params, opt_state, frame, cfg, optimizer, use_rdf, table[i])
+            if entry is None or entry.graph is None:
+                stream = (contextlib.nullcontext() if entry is None
+                          else step_graph.on_capture_stream(device))
+                with stream:
+                    scalars = train_step(params, opt_state, frame, step, cfg, optimizer,
+                                         step_generator(seed, step, device), scalars=table[i])
+                    out[i].copy_(torch.stack([scalars[name] for name in SCALAR_NAMES]))
+                if entry is not None:
+                    entry.warm = True
+                continue
+            if bound is None:
+                entry.load(leaves)
+                bound = entry
+            with span(STEP):
+                entry.replay(table[i], step_seed(seed, step))
+                opt_state["count"] += 1
+                packed, cam_corners_target, row_to_col = entry.outputs
+                out[i].copy_(packed)
+                if is_metric_step(step, cfg):
+                    with span("vsrd.report"):
+                        values = compute_metrics(frame, cam_corners_target, row_to_col)
+                        out[i, metrics].copy_(torch.stack([values[n] for n in METRIC_NAMES]))
+    finally:
+        if bound is not None:
+            bound.store(leaves)
     with span("vsrd.report"):
-        return {k: torch.stack([s[k] for s in scalars]).cpu().numpy() for k in scalars[0]}
+        host = out.cpu().numpy()
+    return {name: np.ascontiguousarray(host[:, j]) for j, name in enumerate(SCALAR_NAMES)}
 
 
 def optimize_frame(frame: FrameData, seed: int,

@@ -58,10 +58,48 @@ def eval_field_with_grad(field: Callable, positions: torch.Tensor):
     return sdf, features, grads
 
 
+class _ExclusiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` shifted by one, with a backward that reads nothing
+    back. PyTorch's own cumprod backward asks the host whether the input
+    holds a zero; this one handles both cases on the device. With y the
+    inclusive cumprod of the input with its zeros set to 1, and c the
+    inclusive count of zeros, the cotangent of x_k from the shifted
+    cotangent g' is, summing over j >= k,
+
+    * x_k != 0: sum of g'_j y_j where c_j = 0, over x_k;
+    * x_k == 0: sum of g'_j y_j where c_j = 1 (0 unless x_k is its row's
+      first zero).
+
+    Without zeros that is PyTorch's ``reversed_cumsum(g' * cumprod(x)) /
+    x`` operation for operation."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        cp = torch.cumprod(x, dim=-1)
+        return torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        shifted = torch.cat([grad[..., 1:], torch.zeros_like(grad[..., :1])], dim=-1)
+        zero = x == 0
+        safe = torch.where(zero, torch.ones_like(x), x)
+        terms = shifted * torch.cumprod(safe, dim=-1)
+        count = torch.cumsum(zero, dim=-1)
+
+        def reversed_cumsum(t):
+            return torch.flip(torch.cumsum(torch.flip(t, (-1,)), dim=-1), (-1,))
+
+        before = reversed_cumsum(torch.where(count == 0, terms, 0.0))
+        at_zero = reversed_cumsum(torch.where(count == 1, terms, 0.0))
+        return torch.where(zero, at_zero, before / safe)
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """cumprod over the last axis shifted by one, with a leading 1."""
-    cp = torch.cumprod(x, dim=-1)
-    return torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+    """cumprod over the last axis shifted by one, with a leading 1; its
+    backward is exact at zeros and never waits on the device."""
+    return _ExclusiveCumprod.apply(x)
 
 
 def anneal_cosines(cosines: torch.Tensor, cosine_ratio) -> torch.Tensor:
